@@ -1,0 +1,110 @@
+"""Top-down heatmap pose-estimation model (SimpleBaseline family).
+
+ResNet-style backbone with GroupNorm plus a transposed-conv head, one
+heatmap per COCO-17 joint.  Input crops are NHWC like the JAX package's;
+the convolutions run NCHW.  Padding reproduces flax's "SAME" rule
+(pad_total = max((ceil(n/s) - 1) * s + k - n, 0), low side gets the
+floor half), and GroupNorm uses flax's epsilon 1e-6.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from golfaction_tpu_torch.config import PoseConfig
+
+_GN_EPS = 1e-6
+
+
+def _same_pads(n: int, k: int, s: int) -> tuple[int, int]:
+    out = -(-n // s)
+    total = max((out - 1) * s + k - n, 0)
+    return total // 2, total - total // 2
+
+
+def _pad_same(x: torch.Tensor, k: int, s: int, value: float = 0.0) -> torch.Tensor:
+    ph = _same_pads(x.shape[-2], k, s)
+    pw = _same_pads(x.shape[-1], k, s)
+    if ph == (0, 0) and pw == (0, 0):
+        return x
+    return F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=value)
+
+
+class SameConv2d(nn.Conv2d):
+    """Conv2d with flax SAME padding (square kernel)."""
+
+    def forward(self, x):
+        return super().forward(_pad_same(x, self.kernel_size[0], self.stride[0]))
+
+
+def _gn(ch: int) -> nn.GroupNorm:
+    return nn.GroupNorm(min(32, ch), ch, eps=_GN_EPS)
+
+
+class ResBlock(nn.Module):
+    """Basic 3x3 residual block; 1x1 projection when width or stride change."""
+
+    def __init__(self, cin: int, channels: int, stride: int = 1):
+        super().__init__()
+        self.conv1 = SameConv2d(cin, channels, 3, stride, bias=False)
+        self.gn1 = _gn(channels)
+        self.conv2 = SameConv2d(channels, channels, 3, 1, bias=False)
+        self.gn2 = _gn(channels)
+        self.proj = None
+        if cin != channels or stride != 1:
+            self.proj = SameConv2d(cin, channels, 1, stride, bias=False)
+            self.gn3 = _gn(channels)
+
+    def forward(self, x):
+        y = F.relu(self.gn1(self.conv1(x)))
+        y = self.gn2(self.conv2(y))
+        r = x if self.proj is None else self.gn3(self.proj(x))
+        return F.relu(y + r)
+
+
+class PoseNet(nn.Module):
+    """crops [B, H, W, 3*in_frames] (normalized, NHWC) -> heatmaps
+    [B, K, Hh, Wh] float32."""
+
+    def __init__(self, cfg: PoseConfig = PoseConfig()):
+        super().__init__()
+        self.cfg = cfg
+        self.stem = SameConv2d(3 * cfg.in_frames, 64, 7, 2, bias=False)
+        self.gn0 = nn.GroupNorm(32, 64, eps=_GN_EPS)
+        blocks, cin = [], 64
+        for i, (nb, ch) in enumerate(zip(cfg.stage_blocks, cfg.stage_channels)):
+            for b in range(nb):
+                blocks.append(ResBlock(cin, ch, 2 if (b == 0 and i > 0) else 1))
+                cin = ch
+        self.blocks = nn.ModuleList(blocks)
+        # SimpleBaseline head, then extra deconvs until heatmap resolution.
+        head = list(cfg.deconv_channels)
+        stride = 4 * 2 ** (len(cfg.stage_blocks) - 1) // (2 ** len(cfg.deconv_channels))
+        target = cfg.input_hw[0] // cfg.heatmap_hw[0]
+        n_extra = 0
+        while stride > target:
+            n_extra += 1
+            stride //= 2
+        head += [cfg.deconv_channels[-1]] * n_extra
+        deconvs, gns = [], []
+        for i, ch in enumerate(head):
+            deconvs.append(nn.ConvTranspose2d(cin, ch, 4, 2, padding=1, bias=False))
+            # The extra deconvs' GroupNorm always takes 32 groups.
+            gns.append(_gn(ch) if i < len(cfg.deconv_channels)
+                       else nn.GroupNorm(32, ch, eps=_GN_EPS))
+            cin = ch
+        self.deconvs = nn.ModuleList(deconvs)
+        self.dgns = nn.ModuleList(gns)
+        self.final = nn.Conv2d(cin, cfg.num_joints, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float().permute(0, 3, 1, 2)
+        x = F.relu(self.gn0(self.stem(x)))
+        x = F.max_pool2d(_pad_same(x, 3, 2, float("-inf")), 3, 2)
+        for blk in self.blocks:
+            x = blk(x)
+        for d, g in zip(self.deconvs, self.dgns):
+            x = F.relu(g(d(x)))
+        return self.final(x).float()

@@ -1,0 +1,74 @@
+"""Affine-transform utilities for top-down pose cropping.
+
+Transforms are 2x3 matrices acting on row vectors [x, y, 1], batched over
+leading dims, with the unbiased (UDP-style) corner-aligned mapping: pixel
+centers (0, 0) and (W-1, H-1) correspond exactly across resolutions.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def box_to_center_scale(boxes: torch.Tensor, aspect_ratio: float,
+                        padding: float = 1.25) -> torch.Tensor:
+    """Expand (cx, cy, w, h) boxes to the crop aspect ratio (crop_w / crop_h)
+    with padding.  Returns boxes [..., 4] with w / h == aspect_ratio."""
+    cx, cy, w, h = boxes.unbind(-1)
+    w = torch.maximum(w, h * aspect_ratio)
+    h = w / aspect_ratio
+    return torch.stack([cx, cy, w * padding, h * padding], dim=-1)
+
+
+def crop_transform(boxes: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """2x3 affine mapping output crop pixel coords -> source image coords.
+
+    src_x = cx - w/2 + x * (w / (W-1)) (UDP unit-length convention).
+    """
+    H, W = out_hw
+    cx, cy, w, h = boxes.unbind(-1)
+    sx = w / (W - 1)
+    sy = h / (H - 1)
+    tx = cx - w / 2.0
+    ty = cy - h / 2.0
+    zeros = torch.zeros_like(sx)
+    row0 = torch.stack([sx, zeros, tx], dim=-1)
+    row1 = torch.stack([zeros, sy, ty], dim=-1)
+    return torch.stack([row0, row1], dim=-2)  # [..., 2, 3]
+
+
+def apply_transform(mat: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """Apply 2x3 affine `mat` [..., 2, 3] to points [..., N, 2]."""
+    A = mat[..., :2]
+    x = points[..., 0:1]
+    y = points[..., 1:2]
+    # Written out (not a matmul) so it rounds like the reference's
+    # "highest"-precision einsum on every backend.
+    out_x = x * A[..., None, 0, 0:1] + y * A[..., None, 0, 1:2]
+    out_y = x * A[..., None, 1, 0:1] + y * A[..., None, 1, 1:2]
+    return torch.cat([out_x, out_y], dim=-1) + mat[..., None, :2, 2]
+
+
+def heatmap_to_crop_transform(heatmap_hw: tuple[int, int],
+                              crop_hw: tuple[int, int],
+                              device=None) -> torch.Tensor:
+    """Static 2x3 affine mapping heatmap pixel coords -> crop pixel coords."""
+    Hh, Wh = heatmap_hw
+    Hc, Wc = crop_hw
+    sx = (Wc - 1) / (Wh - 1)
+    sy = (Hc - 1) / (Hh - 1)
+    return torch.tensor([[sx, 0.0, 0.0], [0.0, sy, 0.0]], dtype=torch.float32,
+                        device=device)
+
+
+def compose(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Compose affines: result(x) = a(b(x)).  Shapes broadcast over batch dims."""
+    A, ta = a[..., :2], a[..., 2]
+    B, tb = b[..., :2], b[..., 2]
+    M = torch.stack([
+        torch.stack([A[..., i, 0] * B[..., 0, k] + A[..., i, 1] * B[..., 1, k]
+                     for k in range(2)], dim=-1)
+        for i in range(2)], dim=-2)
+    t = torch.stack([A[..., i, 0] * tb[..., 0] + A[..., i, 1] * tb[..., 1]
+                     for i in range(2)], dim=-1) + ta
+    return torch.cat([M, t[..., None]], dim=-1)

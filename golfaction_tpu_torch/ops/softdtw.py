@@ -1,0 +1,206 @@
+"""Soft-DTW temporal alignment: anti-diagonal wavefront (kernel C).
+
+  * `wavefront` — the DP table of a batch of cost matrices, soft-min
+    (gamma > 0) or hard min (gamma == 0).  On a CUDA tensor it launches the
+    hand-written kernel (csrc/softdtw.cu), which replaces the TPU kernel
+    golfaction_tpu/ops/pallas/softdtw_kernel.py (_wavefront_batch_jit); on a
+    CPU tensor it runs `wavefront_plain`, the same anti-diagonal recursion.
+  * `softdtw_cost_masked` / `dtw_path_masked` — cost and hard path of
+    D[:la, :lb] read from the full padded table: the DP flows strictly
+    forward, so R[0:la, 0:lb] equals the trimmed problem's table.
+  * `softdtw_reference` / `dtw_path_reference` — O(Ta*Tb) numpy loop oracles.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from golfaction_tpu_torch.ops import _kernels
+
+_INF = 1e10
+
+
+# ---------------------------------------------------------------------------
+# NumPy oracles
+# ---------------------------------------------------------------------------
+
+def softmin_np(values, gamma):
+    values = np.asarray(values, dtype=np.float64)
+    m = values.min()
+    return float(m - gamma * np.log(np.exp(-(values - m) / gamma).sum()))
+
+
+def softdtw_reference(D: np.ndarray, gamma: float) -> tuple[float, np.ndarray]:
+    """O(Ta·Tb) loop DP.  Returns (cost, R) with R the padded DP table."""
+    Ta, Tb = D.shape
+    R = np.full((Ta + 1, Tb + 1), np.inf, dtype=np.float64)
+    R[0, 0] = 0.0
+    for i in range(1, Ta + 1):
+        for j in range(1, Tb + 1):
+            R[i, j] = D[i - 1, j - 1] + softmin_np(
+                [R[i - 1, j], R[i, j - 1], R[i - 1, j - 1]], gamma
+            )
+    return float(R[Ta, Tb]), R
+
+
+def dtw_path_reference(D: np.ndarray) -> np.ndarray:
+    """Classic hard-DTW optimal path (list of (i, j)) by backtracking."""
+    Ta, Tb = D.shape
+    R = np.full((Ta + 1, Tb + 1), np.inf)
+    R[0, 0] = 0.0
+    for i in range(1, Ta + 1):
+        for j in range(1, Tb + 1):
+            R[i, j] = D[i - 1, j - 1] + min(R[i - 1, j], R[i, j - 1], R[i - 1, j - 1])
+    path = [(Ta - 1, Tb - 1)]
+    i, j = Ta, Tb
+    while (i, j) != (1, 1):
+        opts = [(R[i - 1, j - 1], (i - 1, j - 1)), (R[i - 1, j], (i - 1, j)),
+                (R[i, j - 1], (i, j - 1))]
+        _, (i, j) = min(opts, key=lambda t: t[0])
+        path.append((i - 1, j - 1))
+    return np.array(path[::-1], dtype=np.int32)
+
+
+# ---------------------------------------------------------------------------
+# Wavefront
+# ---------------------------------------------------------------------------
+
+def pairwise_sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Squared euclidean distances D[..., Ta, Tb] = |a|² + |b|² - 2 a·bᵀ, >= 0."""
+    a = a.float()
+    b = b.float()
+    an = (a * a).sum(-1)
+    bn = (b * b).sum(-1)
+    ab = torch.matmul(a, b.transpose(-1, -2))
+    return torch.clamp(an[..., :, None] + bn[..., None, :] - 2.0 * ab, min=0.0)
+
+
+def _softmin3(a, b, c, gamma: float):
+    m = torch.minimum(torch.minimum(a, b), c)
+    s = (torch.exp(-(a - m) / gamma) + torch.exp(-(b - m) / gamma)
+         + torch.exp(-(c - m) / gamma))
+    return m - gamma * torch.log(s)
+
+
+def wavefront_plain(D: torch.Tensor, gamma: float) -> torch.Tensor:
+    """D [B, Ta, Tb] -> R [B, Ta, Tb]: one step per anti-diagonal, each
+    diagonal indexed by row i (cell (i, k - i)); out-of-table cells are +INF
+    and a virtual R[-1, -1] = 0 feeds cell (0, 0)."""
+    B, Ta, Tb = D.shape
+    D = D.float()
+    dev = D.device
+    i = torch.arange(Ta, device=dev)
+    inf_col = torch.full((B, 1), _INF, dtype=torch.float32, device=dev)
+    r1 = torch.full((B, Ta), _INF, dtype=torch.float32, device=dev)
+    r2 = r1.clone()
+    diags = []
+    for k in range(Ta + Tb - 1):
+        j = k - i
+        in_band = (j >= 0) & (j < Tb)
+        d = torch.where(in_band, D[:, i, j.clamp(0, Tb - 1)], _INF)
+        up = torch.cat([inf_col, r1[:, :-1]], dim=1)
+        dg = torch.cat([inf_col, r2[:, :-1]], dim=1)
+        if gamma > 0:
+            sm = _softmin3(r1, up, dg, gamma)
+        else:
+            sm = torch.minimum(torch.minimum(r1, up), dg)
+        if k == 0:
+            sm = sm.clone()
+            sm[:, 0] = 0.0
+        r0 = torch.where(d >= _INF, _INF, d + sm)
+        diags.append(r0)
+        r1, r2 = r0, r1
+    table = torch.stack(diags, dim=1)                  # [B, K, Ta]
+    ii = i[:, None].expand(Ta, Tb)
+    jj = torch.arange(Tb, device=dev)[None, :].expand(Ta, Tb)
+    return table[:, ii + jj, ii]
+
+
+def wavefront(D: torch.Tensor, gamma: float) -> torch.Tensor:
+    """DP table R [B, Ta, Tb] of cost matrices D [B, Ta, Tb] (kernel C)."""
+    if D.device.type == "cpu":
+        return wavefront_plain(D, gamma)
+    _kernels.require(D, torch.float32, 3, "softdtw wavefront D")
+    B, Ta, Tb = D.shape
+    R = torch.empty_like(D)
+    if B == 0:
+        return R
+    fn = _kernels.bind("softdtw", "softdtw_wavefront_launch", "ppiiifp")
+    rc = fn(_kernels.ptr(D), _kernels.ptr(R), B, Ta, Tb, float(gamma),
+            _kernels.stream_of(D))
+    _kernels.check(rc, "softdtw wavefront kernel")
+    wavefront.launches += 1
+    return R
+
+
+wavefront.launches = 0
+
+
+def softdtw_cost_masked(D: torch.Tensor, la: torch.Tensor, lb: torch.Tensor,
+                        gamma: float) -> torch.Tensor:
+    """Soft-DTW cost of D[b, :la, :lb] for a batch D [B, Ta, Tb] -> [B]."""
+    R = wavefront(D, gamma)
+    bi = torch.arange(D.shape[0], device=D.device)
+    return R[bi, la.long() - 1, lb.long() - 1]
+
+
+def dtw_path_masked(D: torch.Tensor, la: torch.Tensor, lb: torch.Tensor):
+    """Hard DTW path of D[b, :la, :lb]; path [B, Ta+Tb-1, 2] int32 padded
+    with -1, and lengths [B] int32."""
+    return _backtrack(wavefront(D, 0.0), la, lb)
+
+
+def _backtrack(R: torch.Tensor, la: torch.Tensor, lb: torch.Tensor):
+    """Backtrack optimal paths from (la-1, lb-1) over hard-min tables R
+    [B, Ta, Tb].  Ties go to diagonal, then up, then left (first argmin).
+
+    Runs where R lies, all pairs at once.  Every cell's move is chosen up
+    front, with the JAX package's rule (cells outside the table cost INF);
+    the walk is then a fixed L = Ta+Tb-1 steps of one gather each over flat
+    cell indices, and (0, 0) steps to itself."""
+    B, Ta, Tb = R.shape
+    L = Ta + Tb - 1
+    dev = R.device
+    Rp = torch.nn.functional.pad(R.float(), (1, 0, 1, 0), value=_INF)
+    pred = torch.stack([Rp[:, :-1, :-1], Rp[:, :-1, 1:], Rp[:, 1:, :-1]], dim=-1)
+    move = pred.argmin(dim=-1)                  # 0 diagonal, 1 up, 2 left
+    # On the edges INF ties only when R itself reached INF; stay in the table.
+    move[:, 0, 1:] = 2
+    move[:, 1:, 0] = 1
+    move[:, 0, 0] = 3                           # stay
+    back = torch.tensor([Tb + 1, Tb, 1, 0], device=dev)[move].reshape(B, Ta * Tb)
+    p = ((la.to(dev, torch.long) - 1) * Tb + lb.to(dev, torch.long) - 1)[:, None]
+    rev = torch.empty((B, L), dtype=torch.long, device=dev)
+    for s in range(L):
+        rev[:, s] = p[:, 0]
+        p = p - torch.gather(back, 1, p)
+    length = (rev != 0).sum(dim=1) + 1          # only (0, 0) has flat index 0
+    idx = torch.arange(L, device=dev)[None, :]
+    inside = idx < length[:, None]
+    flat = torch.gather(rev, 1, torch.where(inside, length[:, None] - 1 - idx, idx))
+    path = torch.stack([flat // Tb, flat % Tb], dim=-1)
+    path = torch.where(inside[..., None], path, -1)
+    return path.to(torch.int32), length.to(torch.int32)
+
+
+def warp_by_path(ref_vals: torch.Tensor, path: torch.Tensor, length, T: int) -> torch.Tensor:
+    """Warp per-frame reference values onto the clip timeline via a DTW path.
+
+    ref_vals [Tr, ...], path [L, 2] int32 (clip_idx, ref_idx) with -1
+    padding beyond `length` -> [T, ...]: per clip frame, the mean of the
+    reference frames the path aligns to it (zeros where the path never
+    visits).
+    """
+    L = path.shape[0]
+    dev = ref_vals.device
+    lmask = torch.arange(L, device=dev) < length
+    ti = torch.where(lmask, path[:, 0].long(), T)
+    rj = torch.where(lmask, path[:, 1].long(), 0).clamp(0, ref_vals.shape[0] - 1)
+    extra = (1,) * (ref_vals.dim() - 1)
+    w = lmask.float().reshape(L, *extra)
+    acc = torch.zeros((T + 1, *ref_vals.shape[1:]), dtype=torch.float32, device=dev)
+    acc.index_add_(0, ti, ref_vals[rj].float() * w)
+    cnt = torch.zeros((T + 1,), dtype=torch.float32, device=dev)
+    cnt.index_add_(0, ti, lmask.float())
+    return acc[:T] / cnt[:T].clamp(min=1.0).reshape(T, *extra)

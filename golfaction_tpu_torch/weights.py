@@ -1,0 +1,166 @@
+"""Carry the JAX package's parameters over to the port's modules.
+
+`from_flax(params_np)` takes the JAX parameter tree — {"pose", "gcn",
+"align", "error"} of nested dicts of numpy arrays, as a restored npz
+checkpoint or the JAX pipeline's exported params give it, each with or
+without its top-level "params" key — and returns {name: state_dict} for
+the port's PoseNet, ActionSegmentationGCN, AlignEncoder and
+ErrorClassifier.  Layouts:
+
+  Conv            HWIO -> OIHW
+  Dense           IO -> OI
+  ConvTranspose   HWIO -> IOHW with the spatial axes flipped
+  depthwise conv  (k, 1, 1, ch) -> (ch, 1, k)
+  Conv1d          (k, Cin, Cout) -> (Cout, Cin, k)
+  GroupNorm / LayerNorm   scale, bias -> weight, bias
+  SpatialGraphConv        kernel [P, C, Co] and edge_importance [P, V, V]
+                          as they are (folded into one matrix at load time)
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+def _root(tree: dict) -> dict:
+    return tree["params"] if "params" in tree else tree
+
+
+def _conv(sd, name, node):
+    sd[f"{name}.weight"] = _t(np.transpose(node["kernel"], (3, 2, 0, 1)))
+    if "bias" in node:
+        sd[f"{name}.bias"] = _t(node["bias"])
+
+
+def _deconv(sd, name, node):
+    k = np.asarray(node["kernel"])[::-1, ::-1]
+    sd[f"{name}.weight"] = _t(np.transpose(k, (2, 3, 0, 1)))
+
+
+def _dense(sd, name, node):
+    sd[f"{name}.weight"] = _t(np.asarray(node["kernel"]).T)
+    if "bias" in node:
+        sd[f"{name}.bias"] = _t(node["bias"])
+
+
+def _norm(sd, name, node):
+    sd[f"{name}.weight"] = _t(node["scale"])
+    sd[f"{name}.bias"] = _t(node["bias"])
+
+
+def _seq(p: dict, prefix: str) -> list[str]:
+    """Flax auto-names `prefix_0, prefix_1, ...` present in `p`, in order."""
+    out, i = [], 0
+    while f"{prefix}_{i}" in p:
+        out.append(f"{prefix}_{i}")
+        i += 1
+    return out
+
+
+def pose_state_dict(tree: dict) -> dict:
+    p = _root(tree)
+    sd: dict = {}
+    _conv(sd, "stem", p["Conv_0"])
+    _norm(sd, "gn0", p["GroupNorm_0"])
+    for i, blk in enumerate(_seq(p, "ResBlock")):
+        b = p[blk]
+        _conv(sd, f"blocks.{i}.conv1", b["Conv_0"])
+        _norm(sd, f"blocks.{i}.gn1", b["GroupNorm_0"])
+        _conv(sd, f"blocks.{i}.conv2", b["Conv_1"])
+        _norm(sd, f"blocks.{i}.gn2", b["GroupNorm_1"])
+        if "Conv_2" in b:
+            _conv(sd, f"blocks.{i}.proj", b["Conv_2"])
+            _norm(sd, f"blocks.{i}.gn3", b["GroupNorm_2"])
+    for i, dc in enumerate(_seq(p, "ConvTranspose")):
+        _deconv(sd, f"deconvs.{i}", p[dc])
+        _norm(sd, f"dgns.{i}", p[f"GroupNorm_{i + 1}"])
+    _conv(sd, "final", p["Conv_1"])
+    return sd
+
+
+def gcn_block_state_dict(b: dict) -> dict:
+    """One flax GCNBlock subtree -> the port's GCNBlock state_dict."""
+    sd: dict = {}
+    sgc = b["SpatialGraphConv_0"]
+    sd["sgc.kernel"] = _t(sgc["kernel"])
+    sd["sgc.edge_importance"] = _t(sgc["edge_importance"])
+    _norm(sd, "ln0", b["LayerNorm_0"])
+    m = b["MultiBranchTemporalConv_0"]
+    for j, name in enumerate(_seq(m, "Dense")):
+        _dense(sd, f"mbtc.dense.{j}", m[name])
+    for j, name in enumerate(_seq(m, "LayerNorm")):
+        _norm(sd, f"mbtc.ln.{j}", m[name])
+    for j, name in enumerate(_seq(m, "Conv")):
+        k = np.asarray(m[name]["kernel"])                # [k, 1, 1, ch]
+        sd[f"mbtc.conv.{j}.weight"] = _t(np.transpose(k[:, 0, 0, :], (1, 0))[:, None, :])
+    _dense(sd, "ca.fc1", b["ChannelAtt_0"]["Dense_0"])
+    _dense(sd, "ca.fc2", b["ChannelAtt_0"]["Dense_1"])
+    s = b["STJointAtt_0"]
+    _dense(sd, "stja.fused", s["Dense_0"])
+    _norm(sd, "stja.norm", s["LayerNorm_0"])
+    _dense(sd, "stja.t_fc", s["Dense_1"])
+    _dense(sd, "stja.v_fc", s["Dense_2"])
+    if "Dense_0" in b:
+        _dense(sd, "proj", b["Dense_0"])
+    return sd
+
+
+def gcn_state_dict(tree: dict) -> dict:
+    p = _root(tree)
+    sd: dict = {}
+    for i, blk in enumerate(_seq(p, "GCNBlock")):
+        sd.update({f"blocks.{i}.{k}": v for k, v in gcn_block_state_dict(p[blk]).items()})
+    _dense(sd, "head0", p["Dense_0"])
+    _dense(sd, "head1", p["Dense_1"])
+    return sd
+
+
+def align_state_dict(tree: dict, hidden_channels) -> dict:
+    p = _root(tree)
+    sd: dict = {}
+    _dense(sd, "mixer", p["Dense_0"])
+    _norm(sd, "mixer_ln", p["LayerNorm_0"])
+    dense_i = 1
+    cin = hidden_channels[0]
+    for i, ch in enumerate(hidden_channels):
+        k = np.asarray(p[f"Conv_{i}"]["kernel"])         # [k, Cin, Cout]
+        sd[f"convs.{i}.weight"] = _t(np.transpose(k, (2, 1, 0)))
+        _norm(sd, f"lns.{i}", p[f"LayerNorm_{i + 1}"])
+        if cin != ch:
+            _dense(sd, f"projs.{i}", p[f"Dense_{dense_i}"])
+            dense_i += 1
+        cin = ch
+    _dense(sd, "embed", p[f"Dense_{dense_i}"])
+    return sd
+
+
+def error_state_dict(tree: dict) -> dict:
+    p = _root(tree)
+    sd: dict = {}
+    _dense(sd, "fc0", p["Dense_0"])
+    _norm(sd, "ln0", p["LayerNorm_0"])
+    _dense(sd, "fc1", p["Dense_1"])
+    _norm(sd, "ln1", p["LayerNorm_1"])
+    _dense(sd, "fc2", p["Dense_2"])
+    return sd
+
+
+def from_flax(params_np: dict) -> dict:
+    """{model name: flax tree} -> {model name: torch state_dict}."""
+    out = {}
+    if "pose" in params_np:
+        out["pose"] = pose_state_dict(params_np["pose"])
+    if "gcn" in params_np:
+        out["gcn"] = gcn_state_dict(params_np["gcn"])
+    if "align" in params_np:
+        ap = _root(params_np["align"])
+        hidden = tuple(int(np.shape(ap[c]["kernel"])[2]) for c in _seq(ap, "Conv"))
+        out["align"] = align_state_dict(params_np["align"], hidden)
+    if "error" in params_np:
+        out["error"] = error_state_dict(params_np["error"])
+    return out

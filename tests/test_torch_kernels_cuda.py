@@ -1,0 +1,280 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs a CUDA device (the kernels have no CPU mode) and skips
+without one; run them on a machine with the card:
+
+    python -m pytest tests/test_torch_kernels_cuda.py -q
+
+float32 throughout, with TF32 off for matmuls and convolutions, so the
+tolerances only absorb reduction order.
+"""
+
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from golfaction_tpu_torch import config as tcfg
+from golfaction_tpu_torch.models.gcn import GCNBlock
+from golfaction_tpu_torch.ops import _kernels, affine, gcn_tail, heatmap, preprocess, softdtw
+from golfaction_tpu_torch.pipeline.orchestrator import Pipeline
+from golfaction_tpu_torch.types import Skeleton
+
+pytestmark = pytest.mark.cuda
+ROOT = Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the hand-written kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _frames_boxes(rng, b, h, w):
+    frames = rng.integers(0, 256, (b, h, w, 3), dtype=np.uint8)
+    boxes = np.stack([rng.uniform(-0.1 * w, 1.1 * w, b), rng.uniform(-0.1 * h, 1.1 * h, b),
+                      rng.uniform(0.1 * w, 0.8 * w, b), rng.uniform(0.2 * h, 1.2 * h, b)],
+                     axis=-1).astype(np.float32)
+    return frames, boxes
+
+
+@pytest.mark.parametrize("b,h,w,oh,ow", [(3, 120, 160, 64, 48), (8, 1080, 1920, 256, 192)])
+def test_preprocess_kernel_matches_plain(dev, b, h, w, oh, ow):
+    frames, boxes = _frames_boxes(np.random.default_rng(b), b, h, w)
+    f = torch.from_numpy(frames).to(dev)
+    bx = torch.from_numpy(boxes).to(dev)
+    n0 = preprocess.crop_resize_normalize.launches
+    got = preprocess.crop_resize_normalize(f, bx, (oh, ow))
+    want = preprocess.crop_resize_normalize_reference(f, bx, (oh, ow))
+    torch.cuda.synchronize()
+    assert preprocess.crop_resize_normalize.launches == n0 + 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-4)
+
+
+def _random_block(C, cin, seed):
+    blk = GCNBlock(cin, C, tcfg.GCNConfig(), np.ones((3, 17, 17), np.float32))
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in blk.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.3)
+    return blk
+
+
+@pytest.mark.parametrize("C,T", [(16, 16), (64, 64), (128, 64), (256, 64), (64, 37)])
+def test_gcn_tail_kernel_matches_plain(dev, C, T):
+    tail = _random_block(C, C, C + T).pack().to(dev)
+    gen = torch.Generator().manual_seed(T)
+    x = torch.randn((3, T, 17, C), generator=gen).to(dev)
+    la = torch.tensor([T, T - 5, 1], dtype=torch.int32, device=dev)
+    n0 = gcn_tail.gcn_block_tail.launches
+    got = gcn_tail.gcn_block_tail(x, la, tail)
+    want = gcn_tail.gcn_block_tail_plain(x, la, tail)
+    torch.cuda.synchronize()
+    assert gcn_tail.gcn_block_tail.launches == n0 + 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("B,Ta,Tb", [(3, 7, 11), (8, 64, 64), (8, 128, 64), (2, 600, 20)])
+@pytest.mark.parametrize("gamma", [0.1, 0.0])
+def test_wavefront_kernel_matches_plain(dev, B, Ta, Tb, gamma):
+    rng = np.random.default_rng(Ta * Tb)
+    a = torch.from_numpy(rng.normal(size=(B, Ta, 16)).astype(np.float32)).to(dev)
+    c = torch.from_numpy(rng.normal(size=(B, Tb, 16)).astype(np.float32)).to(dev)
+    D = softdtw.pairwise_sqdist(a, c).contiguous()
+    n0 = softdtw.wavefront.launches
+    got = softdtw.wavefront(D, gamma)
+    want = softdtw.wavefront_plain(D, gamma)
+    torch.cuda.synchronize()
+    assert softdtw.wavefront.launches == n0 + 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5, atol=1e-5)
+    if gamma == 0.0:
+        la = torch.full((B,), Ta, dtype=torch.int32)
+        lb = torch.full((B,), Tb, dtype=torch.int32)
+        pg, lg = softdtw._backtrack(got, la, lb)
+        pw, lw = softdtw._backtrack(want, la, lb)
+        assert torch.equal(pg.cpu(), pw.cpu()) and torch.equal(lg.cpu(), lw.cpu())
+
+
+def test_tail_weight_layout_agrees_with_the_kernel(dev):
+    total = _kernels.bind("gcn_tail", "gcn_tail_layout_total", "ii")
+    for C, M in ((16, 8), (64, 16), (256, 64)):
+        assert total(C, M) == gcn_tail.tail_layout(C, M)["_total"][0]
+
+
+def test_kernels_refuse_bad_inputs(dev):
+    with pytest.raises(ValueError):
+        preprocess.crop_resize_normalize(torch.zeros((1, 8, 8, 3), device=dev),
+                                         torch.zeros((1, 4), device=dev), (4, 4))
+    with pytest.raises(ValueError):
+        softdtw.wavefront(torch.zeros((1, 4, 4), dtype=torch.float64, device=dev), 0.1)
+    tail = _random_block(16, 16, 0).pack().to(dev)
+    with pytest.raises(ValueError):
+        gcn_tail.gcn_block_tail(torch.zeros((1, 4, 17, 16), device=dev),
+                                torch.ones((1,), dtype=torch.int64, device=dev), tail)
+
+
+def _small_cfg(decode_tracking: int = 0):
+    # Single-peak decode by default: random weights on noise frames give
+    # heatmaps whose modes nearly tie, and a tracked decode turns float noise
+    # in them into jumps between modes (test_tracked_decode_gap_is_heatmap_noise).
+    # The shipped tracked decode is held against the CPU with trained weights
+    # in test_shipped_pipeline_on_card_matches_cpu.
+    return tcfg.PipelineConfig(
+        pose=tcfg.PoseConfig(input_hw=(64, 48), heatmap_hw=(16, 12), stage_blocks=(1, 1, 1),
+                             stage_channels=(8, 16, 32), deconv_channels=(16, 16),
+                             decode_tracking=decode_tracking, track_suppress_radius=2.0),
+        gcn=tcfg.GCNConfig(block_channels=(16, 32), temporal_branches=((3, 1), (3, 2))),
+        align=tcfg.AlignConfig(embed_dim=16, hidden_channels=(8, 16)),
+        error=tcfg.ErrorConfig(hidden_dim=32),
+        frame_batch=8, length_buckets=(16, 32))
+
+
+def test_tracked_decode_gap_is_heatmap_noise(dev):
+    """Random-weight heatmaps on both devices, and the tracked decode (top-k
+    modes, then Viterbi) of each.  The decode ops agree across devices when
+    fed the same heatmaps; the heatmaps themselves differ only by float
+    noise; so any gap between the two full decodes is that noise moved
+    across a near-tie of modes, not a fault of the ops on the card."""
+    cfg = _small_cfg(decode_tracking=4)
+    rng = np.random.default_rng(0)
+    frames = rng.integers(0, 256, (2 * 16, 96, 128, 3), dtype=np.uint8)
+    boxes = np.tile(np.float32([64, 48, 50, 80]), (2 * 16, 1))
+    hms = {}
+    for name in ("cpu", "cuda"):
+        pipe = Pipeline(cfg, device=name, seed=0)
+        bx = affine.box_to_center_scale(torch.from_numpy(boxes).to(pipe.device), 48 / 64)
+        with torch.no_grad():
+            crops = preprocess.crop_resize_normalize(
+                torch.from_numpy(frames).to(pipe.device), bx.contiguous(), (64, 48))
+            hms[name] = pipe.pose_model(crops)
+
+    def decode(hm):
+        modes = heatmap.topk_modes(hm, k=4, suppress_radius=2.0)            # [32, V, 4, 3]
+        seq = modes.reshape(2, 16, *modes.shape[1:]).transpose(0, 1)
+        return modes, heatmap.viterbi_track(seq, lam=cfg.pose.track_lambda)
+
+    hm_gap = float((hms["cuda"].cpu() - hms["cpu"]).abs().max() / hms["cpu"].abs().max())
+    modes_g, track_g = decode(hms["cuda"])
+    modes_gc, track_gc = decode(hms["cuda"].cpu())           # the card's maps, on the CPU
+    _, track_c = decode(hms["cpu"])
+    same_maps_gap = float((track_g.cpu() - track_gc).abs().max())
+    full_gap = (track_g.cpu() - track_c)[..., :2].abs()
+    print(f"tracked decode, random weights: heatmap gap {hm_gap:.3e} of the largest value, "
+          f"same-heatmap decode gap {same_maps_gap:.3e} px, full-path elements > 1 px apart "
+          f"{int((full_gap > 1).sum())} of {full_gap.numel()} (max {float(full_gap.max()):.3f})")
+    assert hm_gap <= 1e-4
+    np.testing.assert_allclose(modes_g.cpu().numpy(), modes_gc.numpy(), atol=1e-4)
+    np.testing.assert_allclose(track_g.cpu().numpy(), track_gc.numpy(), atol=1e-4)
+
+
+def _assert_outputs_match(got: dict, want: dict) -> None:
+    np.testing.assert_allclose(got["keypoints"], want["keypoints"], atol=1e-2)
+    np.testing.assert_allclose(got["phase_logits"], want["phase_logits"], atol=1e-3)
+    np.testing.assert_allclose(got["error_probs"], want["error_probs"], atol=1e-4)
+    np.testing.assert_allclose(got["cost"], want["cost"], rtol=1e-4)
+    for k in ("phase_labels", "path", "path_length"):
+        np.testing.assert_array_equal(got[k], want[k])
+
+
+def test_shipped_pipeline_on_card_matches_cpu(dev):
+    """The shipped model (trained weights, tracked decode, mode features,
+    compare mode) on two short rendered swings, card against CPU.  The pose
+    network's heatmaps agree to float noise; everything after it (tracked
+    decode, GCN with kernel B, alignment with kernel C, error head) is held
+    to the CPU on the same heatmaps: the card's, fed to the CPU's program.
+    Two independent runs may still pick different modes where two nearly
+    tie; the test prints how many keypoints that moved."""
+    import chip_smoke
+
+    rng = np.random.default_rng(3)
+    kps = [chip_smoke.swing_keypoints(16, rng) for _ in range(3)]
+    clips = [chip_smoke.render_clip(k, seed=10 + i) for i, k in enumerate(kps[:2])]
+    boxes = [chip_smoke.boxes_of(k) for k in kps[:2]]
+    ref_kpts = torch.from_numpy(np.concatenate([kps[2], np.ones((16, 17, 1), np.float32)], -1))
+
+    def run(pipe, replay=None):
+        """analyze_batch's device programs on one chunk; `replay` replaces
+        the pose network's output, micro-batch by micro-batch."""
+        seen = []
+
+        def hook(module, args, out):
+            seen.append(out.cpu())
+            return None if replay is None else replay[len(seen) - 1].to(out.device)
+
+        handle = pipe.pose_model.register_forward_hook(hook)
+        try:
+            with torch.inference_mode():
+                prep = [pipe._prepare(c, b) for c, b in zip(clips, boxes)]
+                fr, bx, vd = (pipe._to_device([p[k] for p in prep]) for k in range(3))
+                out = pipe._core_fn(fr, bx, vd)
+                a = pipe._align_batch_fn(out["keypoints"], vd, ref_kpts.to(pipe.device),
+                                         torch.ones(16, dtype=torch.bool, device=pipe.device),
+                                         out["phase_logits"], out.get("kpt_aux"))
+        finally:
+            handle.remove()
+        res = dict(keypoints=out["keypoints"], phase_logits=out["phase_logits"],
+                   phase_labels=out["phase_labels"], error_probs=torch.sigmoid(a["error_logits"]),
+                   cost=a["cost"], path=a["path"], path_length=a["path_length"])
+        return {k: v.cpu().numpy() for k, v in res.items()}, seen
+
+    pipes = {}
+    for name in ("cpu", "cuda"):
+        pipes[name] = Pipeline.from_artifacts(str(ROOT / "artifacts"), device=name)
+        assert pipes[name].cfg.pose.decode_tracking == 4 and pipes[name].cfg.error.mode_features
+    card, hm_card = run(pipes["cuda"])
+    cpu, hm_cpu = run(pipes["cpu"])
+    replayed, _ = run(pipes["cpu"], replay=hm_card)
+    hm_gap = max(float((g - c).abs().max() / c.abs().max()) for g, c in zip(hm_card, hm_cpu))
+    valid = np.stack([pipes["cpu"]._prepare(c, b)[2] for c, b in zip(clips, boxes)])
+
+    def moved(a, b):
+        m = np.abs(a["keypoints"] - b["keypoints"])[..., :2].max(-1) > 1e-2      # [N, T, V]
+        return (f"{int(m.sum())} keypoints > 1e-2 px apart ({int(m[valid].sum())} in valid "
+                f"frames) at {sorted(map(tuple, np.argwhere(m).tolist()))}, phase labels equal "
+                f"{bool((a['phase_labels'] == b['phase_labels']).all())}"), m
+
+    # A second witness on the CPU alone: its own heatmaps moved by uniform
+    # noise as large as the gap between the devices.
+    gen = torch.Generator().manual_seed(0)
+    noisy = [c + (torch.rand(c.shape, generator=gen) * 2 - 1) * hm_gap * c.abs().max()
+             for c in hm_cpu]
+    perturbed, _ = run(pipes["cpu"], replay=noisy)
+    text_dev, m_dev = moved(card, cpu)
+    text_cpu, m_cpu = moved(perturbed, cpu)
+    print(f"shipped model: heatmap gap {hm_gap:.3e} of the largest value; card vs CPU: "
+          f"{text_dev}; CPU vs CPU with heatmap noise of that size: {text_cpu}; "
+          f"keypoints moved by both: {int((m_dev & m_cpu).sum())}")
+    assert hm_gap <= 1e-4
+    _assert_outputs_match(card, replayed)
+
+
+def test_pipeline_on_card_matches_cpu(dev):
+    cfg = _small_cfg()
+    rng = np.random.default_rng(0)
+    clips = [rng.integers(0, 256, (n, 96, 128, 3), dtype=np.uint8) for n in (14, 20)]
+    boxes = [np.tile(np.float32([64, 48, 50, 80]), (n, 1)) for n in (14, 20)]
+    ref_kpts = np.concatenate([rng.uniform(20, 100, (16, 17, 2)),
+                               rng.uniform(0.2, 1.0, (16, 17, 1))], -1).astype(np.float32)
+    results = {}
+    for name in ("cpu", "cuda"):
+        pipe = Pipeline(cfg, device=name, seed=0)
+        a = pipe.analyze(clips[0], boxes=boxes[0])
+        # A reference unlike every clip: at zero deviation the error head's
+        # projection feature is discontinuous (see ROADMAP Queue 3).
+        ref = Skeleton(keypoints=torch.from_numpy(ref_kpts).to(pipe.device),
+                       valid=torch.ones(16, dtype=torch.bool, device=pipe.device))
+        batch = pipe.analyze_batch(clips, boxes=boxes, reference=ref)
+        results[name] = [a] + batch
+    for c, g in zip(results["cpu"], results["cuda"]):
+        # 1e-2 px: the UDP step divides by the log-heatmap Hessian, which
+        # amplifies float32 reduction-order differences of the random-weight
+        # convolutions on flat heatmaps (measured 2.8e-3 px on the card).
+        np.testing.assert_allclose(g.keypoints.cpu().numpy(), c.keypoints.numpy(), atol=1e-2)
+        np.testing.assert_allclose(g.phase_logits.cpu().numpy(), c.phase_logits.numpy(),
+                                   atol=1e-3)
+        np.testing.assert_allclose(g.error_probs.cpu().numpy(), c.error_probs.numpy(),
+                                   atol=1e-4)
