@@ -14,13 +14,27 @@ Phases (each prints one line; any failure exits non-zero):
                reference, on 64-frame 1080p clips rendered from a seed;
                output checks, launch counts, and the same program on the
                CPU (plain versions) on a small input as the reference
-  5. times     kernel, plain and library times (CUDA events) at the main
-               path's shapes, each kernel's bound, and end-to-end frames/s
+  5. times     kernel, plain and library times (CUDA events around one call;
+               `graph_ms` is the kernel alone, 20 calls replayed in a CUDA
+               graph) at the main path's shapes, each kernel's bound, and
+               end-to-end frames/s
+  6. single    the `full_pipeline` preset as it is (single-peak decode
+               through kernel D, random weights from a seed, full width):
+               analyze and analyze_batch with a reference; output checks,
+               launch counts, and the program after the pose network held to
+               the CPU on the card's own heatmaps
+  7. train     the four trainers at their default (full) widths for a few
+               steps each, then the stage-wise pose evaluation (crops
+               through kernel A, decode through kernel D, PCK); finite
+               losses, launch counts (one forward wavefront and one backward
+               per alignment step), one alignment and one GCN step against
+               the same step on the CPU
 Then a {"kernels": [...]} line and, last, {"ok": true, "device": {...}}.
 
-A kernel's `launches` counts calls of its wrapper.  The GCN tail's call is
-three __global__ launches (frame tiles, per-clip gates, apply); the others'
-is one.
+A kernel's `launches` counts calls of its wrapper, summed over the three
+driven paths (4, 6, 7); each path zeroes the counts just before it runs and
+reads them just after.  The GCN tail's call is three __global__ launches
+(frame tiles, per-clip gates, apply); the others' is one.
 """
 
 from __future__ import annotations
@@ -37,6 +51,7 @@ import torch.nn.functional as F
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 CLIP_T, VIDEO_HW, BATCH_CLIPS = 64, (1080, 1920), 4
+TRAIN_STEPS = 8                # steps each trainer takes
 
 
 class SmokeFailure(RuntimeError):
@@ -133,6 +148,35 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+def graph_ms(fn, calls: int = 20, reps: int = 10) -> float:
+    """Device milliseconds per call of fn(): `calls` calls captured in one
+    CUDA graph and replayed, so no host launch gap sits between them (the
+    event pair of `cuda_ms` around one call of a 10-microsecond kernel reads
+    mostly that gap).  The inputs are the same in every call, so they are
+    read from L2 where they fit."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        graph.replay()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / calls)
+    return float(np.median(times))
+
+
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
     tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
@@ -174,6 +218,277 @@ def gcn_tail_bytes_ops(B: int, T: int, V: int, w) -> tuple[float, float]:
 
 def wavefront_bytes_ops(B: int, Ta: int, Tb: int, gamma: float):
     return 2 * B * Ta * Tb * 4, B * Ta * Tb * (17 if gamma > 0 else 3)
+
+
+def decode_bytes_ops(M: int, HW: int):
+    """Each heatmap read once, three floats written; one compare per element
+    plus the nine-log Taylor step."""
+    return M * HW * 4 + M * 3 * 4, M * (HW + 200)
+
+
+def softdtw_bwd_bytes_ops(B: int, Ta: int, Tb: int):
+    """D and R read once, E written once; three exponentials (about ten
+    operations each) and a dozen more operations per cell."""
+    return 3 * B * Ta * Tb * 4, B * Ta * Tb * 45
+
+
+def decode_edge_rows(H: int, W: int) -> np.ndarray:
+    """Made-up heatmaps [n, H, W] on the decode's edge cases: all zeros, two
+    equal maxima (the first must win), a peak in each corner and on each
+    edge, a negative-valued map and a smooth interior blob."""
+    ys, xs = np.mgrid[0:H, 0:W].astype(np.float32)
+
+    def blob(cx, cy, s=1.5):
+        return np.exp(-((xs - cx) ** 2 + (ys - cy) ** 2) / (2 * s * s)).astype(np.float32)
+
+    rows = [np.zeros((H, W), np.float32)]
+    tie = np.full((H, W), 0.1, np.float32)
+    tie[H // 3, W // 2] = tie[2 * H // 3, W // 4] = 0.9
+    rows.append(tie)
+    for cx, cy in ((0, 0), (W - 1, 0), (0, H - 1), (W - 1, H - 1),
+                   (W // 2, 0), (W // 2, H - 1), (0, H // 2), (W - 1, H // 2)):
+        rows.append(blob(cx, cy))
+    rows.append(-1.0 - blob(W / 2 + 0.3, H / 2 - 0.2))
+    rows.append(blob(W / 3 + 0.37, H / 2 + 0.21) + 1e-3)
+    return np.stack(rows)
+
+
+def decode_gap(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """Kernel D against the plain decode [..., 3]: whether the integer peaks
+    and the scores are equal, and the largest x/y gap in heatmap px."""
+    got, want = got.reshape(-1, 3), want.reshape(-1, 3)
+    return {"peaks_equal": bool(torch.equal(got[:, :2].round(), want[:, :2].round())),
+            "scores_equal": bool(torch.equal(got[:, 2], want[:, 2])),
+            "max_xy_err": float((got[:, :2] - want[:, :2]).abs().max())}
+
+
+def check_results(results, reference) -> None:
+    """Shapes, finiteness, label range and, for every result after the first
+    (the reference clip's own, which has no alignment), a monotone path
+    between the right corners."""
+    from golfaction_tpu_torch.config import NUM_ERRORS, NUM_PHASES
+
+    lb = int(reference.valid.sum())
+    for n, r in enumerate(results):
+        check(isinstance(r.keypoints, torch.Tensor), f"analyze_batch returned {r!r}")
+        T = r.valid.shape[0]
+        check(tuple(r.keypoints.shape) == (T, 17, 3), "keypoint shape")
+        check(tuple(r.phase_logits.shape) == (T, NUM_PHASES), "phase logit shape")
+        check(tuple(r.error_probs.shape) == (NUM_ERRORS,), "error prob shape")
+        check(bool(torch.isfinite(r.keypoints).all() and torch.isfinite(r.phase_logits).all()
+                   and torch.isfinite(r.error_probs).all()), "non-finite output")
+        lab = r.phase_labels[r.valid]
+        check(bool(((lab >= 0) & (lab < NUM_PHASES)).all()), "phase label out of range")
+        if n == 0:
+            continue
+        a = r.alignment
+        la, n_path = int(r.valid.sum()), int(a.path_length)
+        check(max(la, lb) <= n_path <= la + lb - 1, f"path length {n_path} for {la}x{lb}")
+        p = a.path[:n_path].cpu()
+        steps = p[1:] - p[:-1]
+        check(p[0].tolist() == [0, 0] and p[-1].tolist() == [la - 1, lb - 1], "path ends")
+        check(bool(((steps >= 0) & (steps <= 1)).all() and (steps.sum(1) >= 1).all()),
+              "path not monotone")
+        check(bool(torch.isfinite(a.cost)), "alignment cost not finite")
+
+
+class Replay(torch.nn.Module):
+    """Stands in for a pose network: returns recorded heatmaps, call by call."""
+
+    def __init__(self, heatmaps):
+        super().__init__()
+        self.heatmaps = list(heatmaps)
+        self.calls = 0
+
+    def forward(self, crops):
+        out = self.heatmaps[self.calls].to(crops.device)
+        self.calls += 1
+        return out
+
+
+def single_peak_phase(clips, boxes, counters) -> dict:
+    """The `full_pipeline` preset as it is: decode_tracking 0, so the pose
+    pass decodes through kernel D.  Random weights from seed 0."""
+    from golfaction_tpu_torch.config import get_config
+    from golfaction_tpu_torch.pipeline.orchestrator import Pipeline
+    from golfaction_tpu_torch.types import Skeleton
+
+    cfg = get_config("full_pipeline")
+    check(cfg.pose.decode_tracking == 0 and cfg.pose.udp, "preset is not single-peak UDP")
+    pipe = Pipeline(cfg, device="cuda", seed=0)
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res_ref = pipe.analyze(clips[1], boxes=boxes[1])
+    reference = pipe.extract_skeleton(res_ref)
+    res_cmp = pipe.analyze(clips[0], boxes=boxes[0], reference=reference)
+    res_batch = pipe.analyze_batch(clips[2:], boxes=boxes[2:], reference=reference)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    check_results([res_ref, res_cmp, *res_batch], reference)
+    for k in ("preprocess", "gcn_tail", "softdtw", "decode"):
+        check(launches[k] > 0, f"kernel {k} was not launched on the single-peak path")
+    say("single_peak", config="full_pipeline preset, random weights, seed 0",
+        decode_tracking=cfg.pose.decode_tracking, seconds=round(seconds, 3), launches=launches,
+        results=2 + len(res_batch), ok=True)
+
+    # The program after the pose network, held to the CPU on the card's own
+    # heatmaps: random weights give near-tied peaks, so the two devices'
+    # own heatmaps (equal to float noise) may decode to different peaks.
+    small = [c[:20] for c in clips[2:4]]
+    small_boxes = [b[:20] for b in boxes[2:4]]
+    ref_small = Skeleton(keypoints=reference.keypoints[:40].cpu(),
+                         valid=reference.valid[:40].cpu())
+    seen = []
+    handle = pipe.pose_model.register_forward_hook(lambda m, a, out: seen.append(out.cpu()))
+    try:
+        r_gpu = pipe.analyze_batch(small, boxes=small_boxes, reference=ref_small)
+    finally:
+        handle.remove()
+    cpu = Pipeline(cfg, device="cpu", seed=0)
+    cpu.pose_model = Replay(seen)
+    r_cpu = cpu.analyze_batch(small, boxes=small_boxes, reference=ref_small)
+    check(cpu.pose_model.calls == len(seen), "the CPU replay made other pose calls")
+    diffs = {"keypoints": 0.0, "phase_logits": 0.0, "error_probs": 0.0, "cost_rel": 0.0}
+    clear = total = 0
+    for g, c in zip(r_gpu, r_cpu):
+        for k in ("keypoints", "phase_logits", "error_probs"):
+            diffs[k] = max(diffs[k], float((getattr(g, k).cpu() - getattr(c, k)).abs().max()))
+        diffs["cost_rel"] = max(diffs["cost_rel"], float(
+            (g.alignment.cost.cpu() - c.alignment.cost).abs() / c.alignment.cost.abs()))
+        # Labels where the CPU's top two logits are further apart than the
+        # logit tolerance allows the card to move them.
+        top2 = c.phase_logits.topk(2, dim=-1).values
+        sure = c.valid & ((top2[:, 0] - top2[:, 1]) > 2e-3)
+        clear, total = clear + int(sure.sum()), total + int(c.valid.sum())
+        check(torch.equal(g.phase_labels.cpu()[sure], c.phase_labels[sure]),
+              "single-peak phase labels differ from the CPU")
+        check(torch.equal(g.alignment.path.cpu(), c.alignment.path),
+              "single-peak path differs from the CPU")
+    atol = {"keypoints": 1e-2, "phase_logits": 1e-3, "error_probs": 1e-4, "cost_rel": 1e-4}
+    say("single_peak_cpu", frames=20, clips=2, replayed_pose_calls=len(seen), max_diff=diffs,
+        atol=atol, labels_compared=clear, labels_valid=total, paths="exact")
+    check(all(diffs[k] <= atol[k] for k in atol),
+          "card and CPU disagree after the pose network on the single-peak path")
+    return launches
+
+
+def _step_loss_and_grad_norm(model, loss_fn, batch):
+    from golfaction_tpu_torch.train.loops import global_grad_norm
+
+    model.zero_grad(set_to_none=True)
+    loss, _ = loss_fn(model, batch)
+    loss.backward()
+    return float(loss.detach()), float(global_grad_norm(model))
+
+
+def step_on_card_vs_cpu(model_cpu, loss_fn, batch_cpu, what: str) -> dict:
+    """One loss and backward from the same weights and batch on both devices."""
+    import copy
+
+    dev = torch.device("cuda")
+    model_gpu = copy.deepcopy(model_cpu).to(dev)
+    batch_gpu = tuple(None if t is None else t.to(dev) for t in batch_cpu)
+    model_cpu.train()
+    model_gpu.train()
+    lc, nc = _step_loss_and_grad_norm(model_cpu, loss_fn, batch_cpu)
+    lg, ng = _step_loss_and_grad_norm(model_gpu, loss_fn, batch_gpu)
+    out = {"loss_card": lg, "loss_cpu": lc, "loss_rel": abs(lg - lc) / abs(lc),
+           "grad_norm_card": ng, "grad_norm_cpu": nc, "grad_norm_rel": abs(ng - nc) / abs(nc)}
+    check(out["loss_rel"] <= 1e-4, f"{what}: loss on the card and on the CPU differ")
+    check(out["grad_norm_rel"] <= 1e-3, f"{what}: gradient norms differ")
+    return out
+
+
+def train_phase(counters) -> dict:
+    """The four trainers at their default widths, a few steps each, then the
+    stage-wise pose evaluation."""
+    import dataclasses
+
+    from golfaction_tpu_torch import config as cfg_mod
+    from golfaction_tpu_torch import weights
+    from golfaction_tpu_torch.models.align import AlignEncoder
+    from golfaction_tpu_torch.models.gcn import ActionSegmentationGCN
+    from golfaction_tpu_torch.train import data as data_mod
+    from golfaction_tpu_torch.train import loops
+
+    steps = TRAIN_STEPS
+    tc = cfg_mod.TrainConfig(batch_size=32, warmup_steps=2, total_steps=steps, seed=0)
+    pose_cfg = cfg_mod.PoseConfig()
+    image_hw = (256, 320)
+    for fn in counters.values():
+        fn.launches = 0
+    out = {}
+
+    def run(name, fn):
+        before = {k: f.launches for k, f in counters.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, hist = fn()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        for rec in hist:
+            check(all(np.isfinite(v) for v in rec.values()), f"{name}: non-finite {rec}")
+        check(len(hist) == steps and state.step == steps, f"{name}: {len(hist)} records")
+        out[name] = {k: f.launches - before[k] for k, f in counters.items()}
+        # The call's seconds hold the set-up (model, pool rendering) and the
+        # first step's warm-up; the later steps' pace is read off the history.
+        later = (hist[-1]["seconds"] - hist[0]["seconds"]) / (steps - 1)
+        say(f"train_{name}", steps=steps, seconds=round(sec, 3),
+            seconds_per_step=round(sec / steps, 4),
+            setup_seconds=round(sec - hist[-1]["seconds"], 3),
+            first_step_seconds=round(hist[0]["seconds"], 4),
+            later_seconds_per_step=round(later, 4), loss=[rec["loss"] for rec in hist],
+            grad_norm=[rec["grad_norm"] for rec in hist],
+            extra={k: [rec[k] for rec in hist] for k in hist[0]
+                   if k not in ("step", "loss", "grad_norm", "seconds")}, launches=out[name])
+        return state, hist
+
+    _, hist = run("align", lambda: loops.train_align(cfg_mod.AlignConfig(), tc,
+                                                     frames_per_clip=48, log_every=1))
+    check(out["align"]["softdtw"] == steps and out["align"]["softdtw_bwd"] == steps,
+          f"train_align: {out['align']} launches for {steps} steps")
+    check(hist[-1]["loss"] < hist[0]["loss"], "train_align: the loss did not fall")
+    run("gcn", lambda: loops.train_gcn(cfg_mod.GCNConfig(), tc, frames_per_clip=64,
+                                       log_every=1))
+    check(out["gcn"]["gcn_tail"] == 0, "train_gcn went through the forward-only tail kernel")
+    run("error", lambda: loops.train_error(cfg_mod.ErrorConfig(), tc, frames_per_clip=64,
+                                           log_every=1))
+    state, _ = run("pose", lambda: loops.train_pose(
+        pose_cfg, tc, image_hw=image_hw, clips_per_epoch=4, frames_per_clip=8, log_every=1,
+        pool_clips=4, arm_weight=2.0, fast_frame_boost=1.0, pool_fault_prob=0.5,
+        fault_frame_boost=1.0, fault_joint_boost=1.0, arm_wander=0.05))
+    check(out["pose"]["preprocess"] > 0, "train_pose built its pool without kernel A")
+
+    before = {k: f.launches for k, f in counters.items()}
+    samples = data_mod.make_swing_batch(4, 8, seed=780_000, image_hw=image_hw, render=True,
+                                        scene_families=data_mod.TRAIN_SCENE_FAMILIES)
+    pck = loops.evaluate_pose(state.model, pose_cfg, samples, alpha=0.05)
+    out["pose_eval"] = {k: f.launches - before[k] for k, f in counters.items()}
+    check(np.isfinite(pck) and 0.0 <= pck <= 1.0, f"pose evaluation PCK {pck}")
+    check(out["pose_eval"]["decode"] == len(samples) and out["pose_eval"]["preprocess"]
+          == len(samples), f"pose evaluation launches {out['pose_eval']}")
+    say("train_pose_eval", clips=len(samples), frames=8, hw=list(image_hw), pck_at_0_05=pck,
+        launches=out["pose_eval"], note="after a handful of steps: a mechanism check")
+    launches = {k: f.launches for k, f in counters.items()}
+
+    # One step on the card against the same step on the CPU, small batch.
+    small = dataclasses.replace(tc, batch_size=4)
+    gen = torch.Generator().manual_seed(1)
+    align = AlignEncoder(cfg_mod.AlignConfig())
+    weights.init_random(align, gen)
+    batch = loops.build_align_batch(*loops.align_pairs(small, 48, 0), device="cpu")
+    say("train_step_align_vs_cpu", batch=4, frames=48,
+        **step_on_card_vs_cpu(align, loops.align_loss, batch, "train_align step"))
+    # Dropout 0: the two devices' generators draw different masks.
+    gcn = ActionSegmentationGCN(cfg_mod.GCNConfig(dropout=0.0))
+    weights.init_random(gcn, gen)
+    batch = loops.build_gcn_batch(data_mod.make_swing_batch(4, 64, seed=0), device="cpu")
+    say("train_step_gcn_vs_cpu", batch=4, frames=64, dropout=0.0,
+        **step_on_card_vs_cpu(gcn, loops.gcn_loss, batch, "train_gcn step"))
+    return launches
 
 
 def breakdown(pipe, clips, boxes, reference) -> None:
@@ -235,7 +550,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this script needs "
               "a CUDA card", file=sys.stderr)
         return 2
-    from golfaction_tpu_torch.ops import _kernels, gcn_tail, preprocess, softdtw
+    from golfaction_tpu_torch.ops import _kernels, gcn_tail, heatmap, preprocess, softdtw
     from golfaction_tpu_torch.pipeline.orchestrator import Pipeline
     from golfaction_tpu_torch.types import Skeleton
 
@@ -325,9 +640,50 @@ def main() -> int:
     say("parity_softdtw", B=8, shapes=[[64, 64], [128, 64]], gammas=[cfg.align.gamma, 0.0],
         max_abs_err=errs, max_rel_err=rel, rtol=1e-5, atol=1e-5, paths="exact")
 
+    with torch.inference_mode():
+        hm_a = pipe.pose_model(preprocess.crop_resize_normalize(frames_a, boxes_a, (oh, ow)))
+    hh, hw_ = cfg.pose.heatmap_hw
+    check(tuple(hm_a.shape) == (fb, 17, hh, hw_), f"pose heatmaps {tuple(hm_a.shape)}")
+    gaps = {}
+    for name, maps in (("pose_net", hm_a),
+                       ("edge_rows", torch.from_numpy(decode_edge_rows(hh, hw_)).to(dev))):
+        got = heatmap.decode_heatmaps(maps, "udp")
+        gaps[name] = decode_gap(got, heatmap.decode_heatmaps_plain(maps, "udp"))
+        check(gaps[name]["peaks_equal"] and gaps[name]["scores_equal"],
+              f"decode kernel picks other peaks or scores than its plain version ({name})")
+        check(gaps[name]["max_xy_err"] <= 1e-4, f"decode kernel x/y off its plain version ({name})")
+        if name == "edge_rows":
+            check(got[0].tolist() == [0.0, 0.0, 0.0], "all-zero heatmap does not decode to (0, 0)")
+            check(got[1, :2].round().tolist() == [hw_ // 2, hh // 3], "a tie's later maximum won")
+    err["decode"] = max(g["max_xy_err"] for g in gaps.values())
+    say("parity_decode", shape=[fb, 17, hh, hw_], edge_rows=12, gaps=gaps, peaks="exact",
+        scores="exact", xy_atol=1e-4)
+
+    bwd_errs = []
+    for B_, Ta, Tb in ((96, 48, 48), (8, 128, 64)):
+        e = torch.nn.functional.normalize(torch.randn((B_, Ta + Tb, 128), generator=gen), dim=-1)
+        D = softdtw.pairwise_sqdist(e[:, :Ta], e[:, Ta:]).to(dev).contiguous()
+        R = softdtw.wavefront(D, cfg.align.gamma)
+        got = softdtw.softdtw_backward(D, R, cfg.align.gamma)
+        want = softdtw.softdtw_backward_plain(D, R, cfg.align.gamma)
+        scale = float(want.abs().max())
+        bwd_errs.append({"shape": [B_, Ta, Tb], "max_abs_err": float((got - want).abs().max()),
+                         "max_rel_err": float(((got - want).abs()
+                                               / want.abs().clamp(min=1e-6 * scale)).max()),
+                         "largest_E": scale})
+        check(torch.allclose(got, want, rtol=1e-4, atol=1e-6 * scale),
+              f"soft-DTW backward kernel disagrees at {B_}x{Ta}x{Tb}")
+        Dg = D.clone().requires_grad_()
+        (g,) = torch.autograd.grad(softdtw.softdtw_cost(Dg, cfg.align.gamma).sum(), Dg)
+        check(torch.equal(g, got), "autograd of softdtw_cost is not the kernel's E")
+    err["softdtw_bwd"] = max(b["max_abs_err"] for b in bwd_errs)
+    say("parity_softdtw_bwd", gamma=cfg.align.gamma, results=bwd_errs, rtol=1e-4,
+        atol="1e-6 of the largest E", autograd="equal to E")
+
     # 4. main path ----------------------------------------------------------
     counters = {"preprocess": preprocess.crop_resize_normalize,
-                "gcn_tail": gcn_tail.gcn_block_tail, "softdtw": softdtw.wavefront}
+                "gcn_tail": gcn_tail.gcn_block_tail, "softdtw": softdtw.wavefront,
+                "decode": heatmap.decode_heatmaps, "softdtw_bwd": softdtw.softdtw_backward}
     for fn in counters.values():
         fn.launches = 0
     torch.cuda.synchronize()
@@ -342,33 +698,10 @@ def main() -> int:
     say("main", config="full_pipeline+artifacts", seconds=round(main_s, 3), launches=launches,
         global_launches_per_call={"preprocess": 1, "gcn_tail": 3, "softdtw": 1},
         decode_tracking=cfg.pose.decode_tracking, mode_features=cfg.error.mode_features)
-    for k, n in launches.items():
-        check(n > 0, f"kernel {k} was not launched on the main path")
+    for k in ("preprocess", "gcn_tail", "softdtw"):      # the tracked decode has no kernel
+        check(launches[k] > 0, f"kernel {k} was not launched on the main path")
 
-    from golfaction_tpu_torch.config import NUM_ERRORS, NUM_PHASES
-
-    lb = int(reference.valid.sum())
-    for r in [res_ref, res_cmp, *res_batch]:
-        check(isinstance(r.keypoints, torch.Tensor), f"analyze_batch returned {r!r}")
-        T = r.valid.shape[0]
-        check(tuple(r.keypoints.shape) == (T, 17, 3), "keypoint shape")
-        check(tuple(r.phase_logits.shape) == (T, NUM_PHASES), "phase logit shape")
-        check(tuple(r.error_probs.shape) == (NUM_ERRORS,), "error prob shape")
-        check(bool(torch.isfinite(r.keypoints).all() and torch.isfinite(r.phase_logits).all()
-                   and torch.isfinite(r.error_probs).all()), "non-finite output")
-        lab = r.phase_labels[r.valid]
-        check(bool(((lab >= 0) & (lab < NUM_PHASES)).all()), "phase label out of range")
-        if r is res_ref:
-            continue
-        a = r.alignment
-        la, n = int(r.valid.sum()), int(a.path_length)
-        check(max(la, lb) <= n <= la + lb - 1, f"path length {n} for {la}x{lb}")
-        p = a.path[:n].cpu()
-        steps = p[1:] - p[:-1]
-        check(p[0].tolist() == [0, 0] and p[-1].tolist() == [la - 1, lb - 1], "path ends")
-        check(bool(((steps >= 0) & (steps <= 1)).all() and (steps.sum(1) >= 1).all()),
-              "path not monotone")
-        check(bool(torch.isfinite(a.cost)), "alignment cost not finite")
+    check_results([res_ref, res_cmp, *res_batch], reference)
     say("main_checks", results=2 + len(res_batch), ok=True,
         phase_labels=res_cmp.phase_labels[:8].tolist(),
         error_probs=[round(float(v), 6) for v in res_cmp.error_probs],
@@ -400,6 +733,7 @@ def main() -> int:
     entries = []
     nb, ops = preprocess_bytes_ops(boxes_a, H, W, oh, ow)
     ms = cuda_ms(lambda: preprocess.crop_resize_normalize(frames_a, boxes_a, (oh, ow)))
+    gms = graph_ms(lambda: preprocess.crop_resize_normalize(frames_a, boxes_a, (oh, ow)))
     plain = cuda_ms(lambda: preprocess.crop_resize_normalize_reference(frames_a, boxes_a,
                                                                         (oh, ow)), reps=5)
     src = frames_a.permute(0, 3, 1, 2).float().contiguous()
@@ -416,12 +750,13 @@ def main() -> int:
                         replaces="golfaction_tpu/ops/pallas/preprocess_kernel.py:127",
                         launches=launches["preprocess"], max_abs_err=err["preprocess"],
                         ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
-                        shape=[fb, H, W, 3], bytes=nb, ops=ops))
+                        graph_ms=gms, shape=[fb, H, W, 3], bytes=nb, ops=ops))
 
-    ms = plain = nb = ops = 0.0
+    ms = gms = plain = nb = ops = 0.0
     for blk, x in zip(pipe.gcn_model.blocks, tail_x):
         la_full = torch.full((BATCH_CLIPS,), CLIP_T, dtype=torch.int32, device=dev)
         ms += cuda_ms(lambda: gcn_tail.gcn_block_tail(x, la_full, blk.tail))
+        gms += graph_ms(lambda: gcn_tail.gcn_block_tail(x, la_full, blk.tail), calls=5)
         plain += cuda_ms(lambda: gcn_tail.gcn_block_tail_plain(x, la_full, blk.tail), reps=5)
         b_, o_ = gcn_tail_bytes_ops(BATCH_CLIPS, CLIP_T, 17, blk.tail)
         nb, ops = nb + b_, ops + o_
@@ -431,6 +766,7 @@ def main() -> int:
                         replaces="golfaction_tpu/ops/pallas/gcn_kernel.py:319",
                         launches=launches["gcn_tail"], max_abs_err=err["gcn_tail"],
                         ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
+                        graph_ms=gms,
                         shape="six blocks, x [4, 64, 17, C], C in (64,64,128,128,256,256)",
                         bytes=nb, ops=ops))
 
@@ -439,6 +775,7 @@ def main() -> int:
     D = softdtw.pairwise_sqdist(e[:, :CLIP_T], e[:, CLIP_T:]).to(dev).contiguous()
     gam = cfg.align.gamma
     ms = sum(cuda_ms(lambda g=g: softdtw.wavefront(D, g)) for g in (gam, 0.0))
+    gms = sum(graph_ms(lambda g=g: softdtw.wavefront(D, g)) for g in (gam, 0.0))
     plain = sum(cuda_ms(lambda g=g: softdtw.wavefront_plain(D, g), reps=5) for g in (gam, 0.0))
     nb = ops = 0.0
     for g in (gam, 0.0):
@@ -450,10 +787,47 @@ def main() -> int:
                         replaces="golfaction_tpu/ops/pallas/softdtw_kernel.py:218",
                         launches=launches["softdtw"], max_abs_err=err["softdtw"],
                         ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
-                        shape="D [4, 64, 64], gamma 0.1 then 0", bytes=nb, ops=ops))
+                        graph_ms=gms, shape="D [4, 64, 64], gamma 0.1 then 0", bytes=nb,
+                        ops=ops))
+
+    M, HW = hm_a.shape[0] * hm_a.shape[1], hh * hw_
+    nb, ops = decode_bytes_ops(M, HW)
+    ms = cuda_ms(lambda: heatmap.decode_heatmaps(hm_a, "udp"))
+    gms = graph_ms(lambda: heatmap.decode_heatmaps(hm_a, "udp"))
+    plain = cuda_ms(lambda: heatmap.decode_heatmaps_plain(hm_a, "udp"), reps=5)
+    bms, by = bound(nb, ops)
+    entries.append(dict(name="decode_heatmaps", route="cuda",
+                        source="golfaction_tpu_torch/csrc/decode.cu",
+                        replaces="golfaction_tpu/ops/pallas/decode_kernel.py:117",
+                        launches=0, max_abs_err=err["decode"],
+                        ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
+                        graph_ms=gms,
+                        shape=f"heatmaps [{fb}, 17, {hh}, {hw_}] (one micro-batch)",
+                        bytes=nb, ops=ops))
+
+    B_, Ta = 3 * 32, 48                  # one train_align step: cat([Dab, Daa, Dbb]) at batch 32
+    e = torch.nn.functional.normalize(torch.randn((B_, 2 * Ta, 128), generator=gen), dim=-1)
+    D = softdtw.pairwise_sqdist(e[:, :Ta], e[:, Ta:]).to(dev).contiguous()
+    R = softdtw.wavefront(D, gam)
+    nb, ops = softdtw_bwd_bytes_ops(B_, Ta, Ta)
+    ms = cuda_ms(lambda: softdtw.softdtw_backward(D, R, gam))
+    gms = graph_ms(lambda: softdtw.softdtw_backward(D, R, gam))
+    plain = cuda_ms(lambda: softdtw.softdtw_backward_plain(D, R, gam), reps=3, warmup=1)
+    fwd_ms = graph_ms(lambda: softdtw.wavefront(D, gam))
+    bms, by = bound(nb, ops)
+    entries.append(dict(name="softdtw_backward", route="cuda",
+                        source="golfaction_tpu_torch/csrc/softdtw_bwd.cu",
+                        replaces="golfaction_tpu/ops/pallas/softdtw_kernel.py:241",
+                        launches=0, max_abs_err=err["softdtw_bwd"],
+                        ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
+                        graph_ms=gms,
+                        shape=f"D, R [{B_}, {Ta}, {Ta}], gamma {gam} (one train_align step); "
+                              f"the forward wavefront at this shape takes {fwd_ms:.4f} ms "
+                              f"in a graph",
+                        bytes=nb, ops=ops))
     for en in entries:
-        say("time", **{k: en[k] for k in ("name", "ms", "plain_ms", "bound_ms", "bound_by",
-                                          "library_ms", "shape")})
+        say("time", **{k: en[k] for k in ("name", "ms", "graph_ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms", "shape")})
 
     pipe.analyze_batch(clips[2:], boxes=boxes[2:], reference=reference)     # warm
     walls = []
@@ -469,8 +843,19 @@ def main() -> int:
         smoke_seconds=round(time.perf_counter() - wall0, 3))
     breakdown(pipe, clips[2:], boxes[2:], reference)
 
+    # 6, 7. the single-peak pipeline and the trainers ---------------------------
+    del pipe, cpu
+    torch.cuda.empty_cache()
+    paths = {"main": launches, "single_peak": single_peak_phase(clips, boxes, counters),
+             "train": train_phase(counters)}
+    names = ("preprocess", "gcn_tail", "softdtw", "decode", "softdtw_bwd")
+    for en, k in zip(entries, names):
+        en["launches"] = sum(p[k] for p in paths.values())
+        check(en["launches"] > 0, f"kernel {k} was launched on no driven path")
+    say("launches", by_path=paths, smoke_seconds=round(time.perf_counter() - wall0, 3))
+
     print(json.dumps({"kernels": [{k: v for k, v in en.items()
-                                   if k not in ("shape", "bytes", "ops")}
+                                   if k not in ("shape", "bytes", "ops", "graph_ms")}
                                   for en in entries]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1,8 +1,9 @@
-"""Loading the shipped weights and config from an artifacts tree.
+"""Loading the shipped weights and config from an artifacts tree, and
+writing weights back in the same form.
 
-Reads the compact float16 `<root>/params/<model>.npz` checkpoints (flax key
-paths such as `params/ResBlock_0/Conv_0/kernel`), `pose_meta.json` and
-`error_thresholds.json`.  Numpy and json only.
+Reads and writes the compact float16 `<root>/params/<model>.npz` checkpoints
+(flax key paths such as `params/ResBlock_0/Conv_0/kernel`), and reads
+`pose_meta.json` and `error_thresholds.json`.  Numpy and json only.
 """
 
 from __future__ import annotations
@@ -38,6 +39,28 @@ def restore_params_npz(path: str, cast=np.float32) -> dict:
                 arr = arr.astype(cast)
             node[parts[-1]] = arr
     return tree
+
+
+def save_params_npz(path: str, params: dict, dtype=np.float16) -> str:
+    """Compact single-file checkpoint in the JAX package's layout: the nested
+    dict of arrays (a flax tree, see weights.to_flax) flattened to '/'-joined
+    key paths in one compressed .npz, float leaves cast to `dtype`."""
+    out = {}
+
+    def walk(node, prefix):
+        for key in sorted(node):
+            val = node[key]
+            if isinstance(val, dict):
+                walk(val, f"{prefix}{key}/")
+                continue
+            arr = np.asarray(val)
+            if dtype is not None and np.issubdtype(arr.dtype, np.floating):
+                arr = arr.astype(dtype)
+            out[f"{prefix}{key}"] = arr
+
+    walk(params, "")
+    np.savez_compressed(path, **out)
+    return path
 
 
 def load_params(root: str, names=("pose", "gcn", "align", "error")) -> dict:

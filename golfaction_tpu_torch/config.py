@@ -156,6 +156,20 @@ class PipelineConfig:
     box_refine_stride: int = 0
 
 
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    batch_size: int = 32
+    learning_rate: float = 1e-3
+    weight_decay: float = 1e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    seed: int = 0
+    checkpoint_dir: str = "/tmp/golfaction_ckpt"
+    checkpoint_every: int = 200
+    # TensorBoard scalar mirror; only None until the logging module is ported.
+    tb_logdir: str | None = None
+
+
 def _preset_pose_single() -> PipelineConfig:
     return PipelineConfig(frame_batch=1)
 

@@ -12,6 +12,12 @@ Two forward paths compute the same function:
     gcn_forward_pallas: the spatial conv and the residual in torch, the
     block tail through ops.gcn_tail (the CUDA kernel on the card).  Its
     weights are packed once by `prepare()`.
+
+Training (`.train()`) runs the plain chain with the live weights and the
+block dropout: the tail kernel is forward-only, as the TPU kernel it
+replaces.  Entering training mode drops what `prepare()` packed, so weights
+changed by training never meet a stale copy; `prepare()` runs again before
+the next fused forward.
 """
 
 from __future__ import annotations
@@ -195,7 +201,8 @@ class GCNBlock(nn.Module):
             stja_t=dense(self.stja.t_fc), stja_v=dense(self.stja.v_fc),
         )
 
-    def forward(self, x, valid, la=None, fused: bool = False):
+    def forward(self, x, valid, la=None, fused: bool = False, dropout: float = 0.0,
+                generator=None):
         y = self.sgc(x)
         if fused:
             z = gcn_tail.gcn_block_tail(y.contiguous(), la, self.tail)
@@ -205,12 +212,21 @@ class GCNBlock(nn.Module):
             y = self.ca(y, valid)
             z = self.stja(y, valid)
         residual = x if self.proj is None else self.proj(x)
-        return _mask(z + residual, valid)
+        z = z + residual
+        if dropout > 0:
+            keep = torch.rand(z.shape, generator=generator, device=z.device) >= dropout
+            z = z * keep / (1.0 - dropout)
+        return _mask(z, valid)
 
 
 class ActionSegmentationGCN(nn.Module):
     """skeletons [B, T, V, C_in] (normalized), valid [B, T] -> phase logits
-    [B, T, num_phases] float32."""
+    [B, T, num_phases] float32.
+
+    A new model is in eval mode (inference is the default use); `.train()`
+    enters training mode, where `forward` takes the plain chain and draws
+    the block dropout from `generator` (a torch.Generator on the model's
+    device)."""
 
     def __init__(self, cfg: GCNConfig = GCNConfig()):
         super().__init__()
@@ -223,6 +239,14 @@ class ActionSegmentationGCN(nn.Module):
         self.blocks = nn.ModuleList(blocks)
         self.head0 = nn.Linear(cin, cfg.block_channels[-1])
         self.head1 = nn.Linear(cfg.block_channels[-1], cfg.num_phases)
+        self.train(False)
+
+    def train(self, mode: bool = True):
+        if mode:
+            for blk in self.blocks:
+                blk.tail = None
+                blk.sgc._wbig = None
+        return super().train(mode)
 
     @torch.no_grad()
     def prepare(self) -> None:
@@ -232,14 +256,20 @@ class ActionSegmentationGCN(nn.Module):
             blk.sgc._wbig = blk.sgc.wbig().detach()
             blk.tail = blk.pack().to(blk.sgc.kernel.device)
 
-    def forward(self, x, valid, fused: bool = True):
+    def forward(self, x, valid, fused: bool = True, generator=None):
+        dropout = 0.0
+        if self.training:
+            fused = False
+            dropout = self.cfg.dropout
+            if dropout > 0 and generator is None:
+                raise ValueError("training with dropout needs an explicit torch.Generator")
         if fused and self.blocks[0].tail is None:
             raise RuntimeError("ActionSegmentationGCN.prepare() must run before "
                                "the fused forward")
         h = x.float()
         la = valid.sum(1).to(torch.int32).contiguous() if fused else None
         for blk in self.blocks:
-            h = blk(h, valid, la=la, fused=fused)
+            h = blk(h, valid, la=la, fused=fused, dropout=dropout, generator=generator)
         feat = F.relu(self.head0(h.mean(dim=2)))
         return self.head1(feat)
 

@@ -37,6 +37,18 @@ def crop_transform(boxes: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor
     return torch.stack([row0, row1], dim=-2)  # [..., 2, 3]
 
 
+def invert_transform(mat: torch.Tensor) -> torch.Tensor:
+    """Invert a batch of 2x3 affine matrices."""
+    A, t = mat[..., :2], mat[..., 2]
+    det = A[..., 0, 0] * A[..., 1, 1] - A[..., 0, 1] * A[..., 1, 0]
+    inv = torch.stack([
+        torch.stack([A[..., 1, 1] / det, -A[..., 0, 1] / det], dim=-1),
+        torch.stack([-A[..., 1, 0] / det, A[..., 0, 0] / det], dim=-1)], dim=-2)
+    tinv = -torch.stack([inv[..., i, 0] * t[..., 0] + inv[..., i, 1] * t[..., 1]
+                         for i in range(2)], dim=-1)
+    return torch.cat([inv, tinv[..., None]], dim=-1)
+
+
 def apply_transform(mat: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     """Apply 2x3 affine `mat` [..., 2, 3] to points [..., N, 2]."""
     A = mat[..., :2]

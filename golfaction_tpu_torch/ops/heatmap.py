@@ -3,8 +3,13 @@ top-k non-max-suppressed modes, and Viterbi mode tracking over a clip.
 
 All functions take heatmaps [..., K, H, W] and are vectorized over the
 batch dims; coordinates are in heatmap pixel space (corner-aligned) until
-`keypoints_to_image` maps them into source-image pixels.  Plain torch ops:
-the reference computes them outside any hand-written kernel.
+`keypoints_to_image` maps them into source-image pixels.
+
+`decode_heatmaps(hm, "udp")` on a CUDA tensor launches the hand-written
+kernel csrc/decode.cu (kernel D), which replaces the TPU kernel
+golfaction_tpu/ops/pallas/decode_kernel.py (decode_heatmaps_pallas); on a CPU
+tensor it runs `decode_heatmaps_plain`.  Everything else here is plain torch
+ops: the reference computes them outside any hand-written kernel.
 """
 
 from __future__ import annotations
@@ -12,7 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from golfaction_tpu_torch.ops import affine
+from golfaction_tpu_torch.ops import _kernels, affine
 
 
 def _peak_coords(heatmaps: torch.Tensor):
@@ -64,7 +69,7 @@ def _udp_offset(heatmaps: torch.Tensor, x_i: torch.Tensor, y_i: torch.Tensor):
     return off_x, off_y
 
 
-def decode_heatmaps(heatmaps: torch.Tensor, method: str = "udp") -> torch.Tensor:
+def decode_heatmaps_plain(heatmaps: torch.Tensor, method: str = "udp") -> torch.Tensor:
     """heatmaps [..., K, H, W] -> keypoints [..., K, 3] (x, y, score)."""
     x_i, y_i, peak = _peak_coords(heatmaps)
     x = x_i.float()
@@ -85,6 +90,31 @@ def decode_heatmaps(heatmaps: torch.Tensor, method: str = "udp") -> torch.Tensor
     else:
         raise ValueError(f"unknown decode method: {method!r}")
     return torch.stack([x, y, peak.float()], dim=-1)
+
+
+def decode_heatmaps(heatmaps: torch.Tensor, method: str = "udp") -> torch.Tensor:
+    """heatmaps [..., K, H, W] -> keypoints [..., K, 3] (x, y, score): the
+    first maximum of each map, refined by `method` ("udp": DARK/UDP Taylor
+    step, kernel D on the card; "quarter"; "argmax")."""
+    if method != "udp" or heatmaps.device.type == "cpu":
+        return decode_heatmaps_plain(heatmaps, method)
+    if heatmaps.dim() < 2 or heatmaps.shape[-1] * heatmaps.shape[-2] == 0:
+        raise ValueError(f"decode_heatmaps: expected [..., H, W], got {tuple(heatmaps.shape)}")
+    *lead, H, W = heatmaps.shape
+    hm = heatmaps.float().reshape(-1, H * W).contiguous()
+    _kernels.require(hm, torch.float32, 2, "decode heatmaps")
+    M = hm.shape[0]
+    out = torch.empty((M, 3), dtype=torch.float32, device=hm.device)
+    if M == 0:
+        return out.reshape(*lead, 3)
+    fn = _kernels.bind("decode", "decode_heatmaps_launch", "ppiiip")
+    rc = fn(_kernels.ptr(hm), _kernels.ptr(out), M, H, W, _kernels.stream_of(hm))
+    _kernels.check(rc, "heatmap decode kernel")
+    decode_heatmaps.launches += 1
+    return out.reshape(*lead, 3)
+
+
+decode_heatmaps.launches = 0
 
 
 def topk_modes(heatmaps: torch.Tensor, k: int = 4, suppress_radius: float = 3.0,
@@ -155,12 +185,45 @@ def viterbi_track(modes: torch.Tensor, lam: float = 0.1, eps: float = 1e-6) -> t
     return torch.gather(modes, modes.dim() - 2, sel)[..., 0, :]
 
 
+def make_heatmap_targets(kpts_hm: torch.Tensor, heatmap_hw: tuple[int, int],
+                         sigma: float = 2.0):
+    """Gaussian target heatmaps for training the pose model.
+
+    kpts_hm [..., K, 2] in heatmap pixel coords (sub-pixel ok) -> (targets
+    [..., K, H, W], weights [..., K]); weight 0 marks joints whose peak falls
+    outside the heatmap, and their target is zero."""
+    H, W = heatmap_hw
+    dev = kpts_hm.device
+    ys = torch.arange(H, dtype=torch.float32, device=dev)[:, None]
+    xs = torch.arange(W, dtype=torch.float32, device=dev)[None, :]
+    mu = kpts_hm[..., None, None, :]
+    d2 = (xs - mu[..., 0]) ** 2 + (ys - mu[..., 1]) ** 2
+    targets = torch.exp(-d2 / (2.0 * sigma ** 2))
+    inside = ((kpts_hm[..., 0] >= 0) & (kpts_hm[..., 0] <= W - 1)
+              & (kpts_hm[..., 1] >= 0) & (kpts_hm[..., 1] <= H - 1))
+    weights = inside.float()
+    return targets * weights[..., None, None], weights
+
+
+def _heatmap_to_image_transform(boxes, heatmap_hw, crop_hw):
+    hm2crop = affine.heatmap_to_crop_transform(heatmap_hw, crop_hw, device=boxes.device)
+    crop2img = affine.crop_transform(boxes, crop_hw)
+    return affine.compose(crop2img, hm2crop.expand_as(crop2img))
+
+
+def image_keypoints_to_heatmap(kpts_img: torch.Tensor, boxes: torch.Tensor,
+                               heatmap_hw: tuple[int, int],
+                               crop_hw: tuple[int, int]) -> torch.Tensor:
+    """Inverse of `keypoints_to_image`, for building training targets."""
+    inv = affine.invert_transform(_heatmap_to_image_transform(boxes, heatmap_hw, crop_hw))
+    xy = affine.apply_transform(inv, kpts_img[..., :2])
+    return torch.cat([xy, kpts_img[..., 2:]], dim=-1)
+
+
 def keypoints_to_image(kpts_hm: torch.Tensor, boxes: torch.Tensor,
                        heatmap_hw: tuple[int, int], crop_hw: tuple[int, int]) -> torch.Tensor:
     """Heatmap-space keypoints [..., K, 3] -> source-image pixels, through the
     (cx, cy, w, h) crop boxes [..., 4] used by preprocessing."""
-    hm2crop = affine.heatmap_to_crop_transform(heatmap_hw, crop_hw, device=kpts_hm.device)
-    crop2img = affine.crop_transform(boxes, crop_hw)
-    full = affine.compose(crop2img, hm2crop.expand_as(crop2img))
+    full = _heatmap_to_image_transform(boxes, heatmap_hw, crop_hw)
     xy = affine.apply_transform(full, kpts_hm[..., :2])
     return torch.cat([xy, kpts_hm[..., 2:]], dim=-1)

@@ -1,14 +1,23 @@
-"""Soft-DTW temporal alignment: anti-diagonal wavefront (kernel C).
+"""Soft-DTW temporal alignment: anti-diagonal wavefront (kernel C) and its
+backward, the E-recursion as a reverse wavefront (kernel E).
 
   * `wavefront` — the DP table of a batch of cost matrices, soft-min
     (gamma > 0) or hard min (gamma == 0).  On a CUDA tensor it launches the
     hand-written kernel (csrc/softdtw.cu), which replaces the TPU kernel
     golfaction_tpu/ops/pallas/softdtw_kernel.py (_wavefront_batch_jit); on a
     CPU tensor it runs `wavefront_plain`, the same anti-diagonal recursion.
+  * `softdtw_backward` — E = d cost / d D of a batch of tables, which is
+    also the soft alignment matrix.  On a CUDA tensor it launches the
+    hand-written kernel (csrc/softdtw_bwd.cu), which replaces the TPU kernel
+    golfaction_tpu/ops/pallas/softdtw_kernel.py (_backward_batch_jit); on a
+    CPU tensor it runs `softdtw_backward_plain`.
+  * `softdtw_cost` — the differentiable cost: forward through `wavefront`,
+    backward through `softdtw_backward`.
   * `softdtw_cost_masked` / `dtw_path_masked` — cost and hard path of
     D[:la, :lb] read from the full padded table: the DP flows strictly
     forward, so R[0:la, 0:lb] equals the trimmed problem's table.
-  * `softdtw_reference` / `dtw_path_reference` — O(Ta*Tb) numpy loop oracles.
+  * `softdtw_reference` / `softdtw_grad_reference` / `dtw_path_reference` —
+    O(Ta*Tb) numpy loop oracles.
 """
 
 from __future__ import annotations
@@ -42,6 +51,26 @@ def softdtw_reference(D: np.ndarray, gamma: float) -> tuple[float, np.ndarray]:
                 [R[i - 1, j], R[i, j - 1], R[i - 1, j - 1]], gamma
             )
     return float(R[Ta, Tb]), R
+
+
+def softdtw_grad_reference(D: np.ndarray, R: np.ndarray, gamma: float) -> np.ndarray:
+    """Backward E-recursion (Cuturi & Blondel 2017, Alg. 2) over the padded
+    table R of `softdtw_reference`.  d cost / d D = E."""
+    Ta, Tb = D.shape
+    E = np.zeros((Ta + 2, Tb + 2), dtype=np.float64)
+    E[Ta + 1, Tb + 1] = 1.0
+    Rp = np.full((Ta + 2, Tb + 2), -np.inf, dtype=np.float64)
+    Rp[1 : Ta + 1, 1 : Tb + 1] = R[1:, 1:]
+    Rp[Ta + 1, Tb + 1] = R[Ta, Tb]
+    Dp = np.zeros((Ta + 2, Tb + 2), dtype=np.float64)
+    Dp[1 : Ta + 1, 1 : Tb + 1] = D
+    for i in range(Ta, 0, -1):
+        for j in range(Tb, 0, -1):
+            a = np.exp((Rp[i + 1, j] - Rp[i, j] - Dp[i + 1, j]) / gamma)
+            b = np.exp((Rp[i, j + 1] - Rp[i, j] - Dp[i, j + 1]) / gamma)
+            c = np.exp((Rp[i + 1, j + 1] - Rp[i, j] - Dp[i + 1, j + 1]) / gamma)
+            E[i, j] = a * E[i + 1, j] + b * E[i, j + 1] + c * E[i + 1, j + 1]
+    return E[1 : Ta + 1, 1 : Tb + 1]
 
 
 def dtw_path_reference(D: np.ndarray) -> np.ndarray:
@@ -135,6 +164,119 @@ def wavefront(D: torch.Tensor, gamma: float) -> torch.Tensor:
 
 
 wavefront.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Backward (E-recursion) and the differentiable cost
+# ---------------------------------------------------------------------------
+
+def softdtw_backward_plain(D: torch.Tensor, R: torch.Tensor, gamma: float) -> torch.Tensor:
+    """(D, R) [B, Ta, Tb] -> E [B, Ta, Tb]: the mirror of `wavefront_plain`,
+    one step per anti-diagonal from k = Ta+Tb-2 down to 0, each diagonal
+    indexed by row i.  Cell (i, k-i) pulls from its successors down (i+1, j),
+    right (i, j+1) and diagonal (i+1, j+1) with weight
+    exp((R[s] - R[i, j] - D[s]) / gamma); a successor outside the table
+    weighs 0 by an index test made before the exponential."""
+    B, Ta, Tb = D.shape
+    D = D.float()
+    R = R.float()
+    dev = D.device
+    i = torch.arange(Ta, device=dev)
+    zero_col = torch.zeros((B, 1), dtype=torch.float32, device=dev)
+    neg_inf = torch.tensor(float("-inf"), dtype=torch.float32, device=dev)
+    e1 = torch.zeros((B, Ta), dtype=torch.float32, device=dev)
+    e2 = e1.clone()
+    K = Ta + Tb - 1
+
+    def at(M, ii, jj):
+        return M[:, ii.clamp(0, Ta - 1), jj.clamp(0, Tb - 1)]
+
+    def below(e):                                     # e[i] -> e[i + 1]
+        return torch.cat([e[:, 1:], zero_col], dim=1)
+
+    diags = [None] * K
+    for k in range(K - 1, -1, -1):
+        j = k - i
+        in_band = (j >= 0) & (j < Tb)
+        r0 = at(R, i, j)
+
+        def term(di, dj, e_succ):
+            ok = in_band & (i + di < Ta) & (j + dj < Tb)
+            expo = (at(R, i + di, j + dj) - r0 - at(D, i + di, j + dj)) / gamma
+            return torch.exp(torch.where(ok, expo, neg_inf)) * e_succ
+
+        e0 = term(1, 0, below(e1)) + term(0, 1, e1) + term(1, 1, below(e2))
+        if k == K - 1:
+            e0 = torch.where(i == Ta - 1, 1.0, e0)
+        e0 = torch.where(in_band & (at(D, i, j) < _INF), e0, 0.0)
+        diags[k] = e0
+        e1, e2 = e0, e1
+    table = torch.stack(diags, dim=1)                  # [B, K, Ta]
+    ii = i[:, None].expand(Ta, Tb)
+    jj = torch.arange(Tb, device=dev)[None, :].expand(Ta, Tb)
+    return table[:, ii + jj, ii]
+
+
+def softdtw_backward(D: torch.Tensor, R: torch.Tensor, gamma: float) -> torch.Tensor:
+    """E [B, Ta, Tb] = d R[:, -1, -1] / d D from the cost matrices D and
+    their soft-DTW tables R (kernel E).  gamma > 0."""
+    if gamma <= 0:
+        raise ValueError("softdtw_backward needs gamma > 0: the hard minimum "
+                         "has no E-recursion")
+    if D.device.type == "cpu":
+        return softdtw_backward_plain(D, R, gamma)
+    _kernels.require(D, torch.float32, 3, "softdtw backward D")
+    _kernels.require(R, torch.float32, 3, "softdtw backward R")
+    if R.shape != D.shape:
+        raise ValueError(f"softdtw backward: D {tuple(D.shape)} and R {tuple(R.shape)} differ")
+    B, Ta, Tb = D.shape
+    E = torch.empty_like(D)
+    if B == 0:
+        return E
+    fn = _kernels.bind("softdtw_bwd", "softdtw_backward_launch", "pppiiifp")
+    rc = fn(_kernels.ptr(D), _kernels.ptr(R), _kernels.ptr(E), B, Ta, Tb, float(gamma),
+            _kernels.stream_of(D))
+    _kernels.check(rc, "softdtw backward kernel")
+    softdtw_backward.launches += 1
+    return E
+
+
+softdtw_backward.launches = 0
+
+
+class _SoftDTWCost(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, D, gamma):
+        D = D.float().contiguous()       # autograd may hand over a strided view
+        R = wavefront(D, gamma)
+        ctx.save_for_backward(D, R)
+        ctx.gamma = gamma
+        return R[:, -1, -1].clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        D, R = ctx.saved_tensors
+        return g[:, None, None] * softdtw_backward(D, R, ctx.gamma), None
+
+
+def softdtw_cost(D: torch.Tensor, gamma: float) -> torch.Tensor:
+    """Soft-DTW cost [B] of cost matrices D [B, Ta, Tb], differentiable in D:
+    one wavefront forward (kernel C on the card), one E-recursion backward
+    (kernel E on the card)."""
+    if gamma <= 0:
+        raise ValueError("softdtw_cost needs gamma > 0: the hard minimum has "
+                         "no E-recursion; use dtw_path_masked for hard DTW")
+    if D.dim() != 3:
+        raise ValueError(f"softdtw_cost: expected D [B, Ta, Tb], got {tuple(D.shape)}")
+    return _SoftDTWCost.apply(D, gamma)
+
+
+def softdtw_with_alignment(D: torch.Tensor, gamma: float):
+    """(cost [B], E [B, Ta, Tb]) of D [B, Ta, Tb]; E is the soft alignment
+    matrix (the expected alignment under the Gibbs distribution)."""
+    D = D.float().contiguous()
+    R = wavefront(D, gamma)
+    return R[:, -1, -1], softdtw_backward(D, R, gamma)
 
 
 def softdtw_cost_masked(D: torch.Tensor, la: torch.Tensor, lb: torch.Tensor,

@@ -2,8 +2,9 @@
 alignment against a reference swing, and swing-fault flags out.
 
 Stages per clip (frames padded to a length bucket, `valid` marks real ones):
-crop/resize/normalize (kernel A) -> PoseNet -> tracked heatmap decode ->
-skeleton normalize -> GCN (block tails through kernel B) -> error head.
+crop/resize/normalize (kernel A) -> PoseNet -> heatmap decode (single peak
+through kernel D, or the tracked top-k decode) -> skeleton normalize -> GCN
+(block tails through kernel B) -> error head.
 Compare mode embeds clip and reference, computes the soft-DTW cost and the
 hard-DTW path (kernel C), warps the reference onto the clip's timeline and
 re-runs the error head with the deviation features.
@@ -89,21 +90,10 @@ class Pipeline:
         return cls(cfg, params, device=device,
                    error_thresholds=checkpoint.load_error_thresholds(root))
 
-    @torch.no_grad()
     def _init_random(self, seed: int) -> None:
         gen = torch.Generator().manual_seed(seed)
         for m in self.models.values():
-            for name, p in m.named_parameters():
-                leaf = name.rsplit(".", 1)[-1]
-                if leaf == "edge_importance" or (p.dim() == 1 and leaf == "weight"):
-                    p.fill_(1.0)
-                elif leaf == "bias":
-                    p.zero_()
-                else:
-                    fan_in = p[0].numel() if p.dim() > 1 else p.numel()
-                    if leaf == "kernel":          # spatial graph conv [P, C, Co]
-                        fan_in = p.shape[1]
-                    p.copy_(torch.randn(p.shape, generator=gen) / fan_in ** 0.5)
+            weights.init_random(m, gen)
 
     # ------------------------------------------------------------------
     # Device programs

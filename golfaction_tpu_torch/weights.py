@@ -15,12 +15,34 @@ ErrorClassifier.  Layouts:
   GroupNorm / LayerNorm   scale, bias -> weight, bias
   SpatialGraphConv        kernel [P, C, Co] and edge_importance [P, V, V]
                           as they are (folded into one matrix at load time)
+
+`to_flax(state_dicts)` is the inverse: what the port trained goes back into
+the JAX package's tree ({name: {"params": ...}} of numpy arrays), so that
+`checkpoint.save_params_npz` writes a file the JAX package loads.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+@torch.no_grad()
+def init_random(module: torch.nn.Module, gen: torch.Generator) -> None:
+    """Fill a port module with random weights drawn from `gen` (a CPU
+    generator): normal(0, 1/fan_in) matrices and kernels, unit norm scales
+    and edge importances, zero biases."""
+    for name, p in module.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "edge_importance" or (p.dim() == 1 and leaf == "weight"):
+            p.fill_(1.0)
+        elif leaf == "bias":
+            p.zero_()
+        else:
+            fan_in = p[0].numel() if p.dim() > 1 else p.numel()
+            if leaf == "kernel":          # spatial graph conv [P, C, Co]
+                fan_in = p.shape[1]
+            p.copy_(torch.randn(p.shape, generator=gen) / fan_in ** 0.5)
 
 
 def _t(a) -> torch.Tensor:
@@ -164,3 +186,122 @@ def from_flax(params_np: dict) -> dict:
     if "error" in params_np:
         out["error"] = error_state_dict(params_np["error"])
     return out
+
+
+# ---------------------------------------------------------------------------
+# The way back: torch state_dicts -> flax trees
+# ---------------------------------------------------------------------------
+
+def _n(t) -> np.ndarray:
+    return t.detach().cpu().numpy().astype(np.float32)
+
+
+def _with_bias(sd, name, node):
+    if f"{name}.bias" in sd:
+        node["bias"] = _n(sd[f"{name}.bias"])
+    return node
+
+
+def _conv_out(sd, name):
+    return _with_bias(sd, name, {"kernel": np.transpose(_n(sd[f"{name}.weight"]), (2, 3, 1, 0))})
+
+
+def _deconv_out(sd, name):
+    k = np.transpose(_n(sd[f"{name}.weight"]), (2, 3, 0, 1))
+    return {"kernel": np.ascontiguousarray(k[::-1, ::-1])}
+
+
+def _dense_out(sd, name):
+    return _with_bias(sd, name, {"kernel": np.ascontiguousarray(_n(sd[f"{name}.weight"]).T)})
+
+
+def _norm_out(sd, name):
+    return {"scale": _n(sd[f"{name}.weight"]), "bias": _n(sd[f"{name}.bias"])}
+
+
+def _count(sd, prefix: str) -> int:
+    """How many `prefix.<i>.` groups a state_dict holds."""
+    return len({k[len(prefix) + 1:].split(".")[0] for k in sd if k.startswith(prefix + ".")})
+
+
+def _sub(sd, prefix: str) -> dict:
+    return {k[len(prefix) + 1:]: v for k, v in sd.items() if k.startswith(prefix + ".")}
+
+
+def pose_tree(sd: dict) -> dict:
+    p = {"Conv_0": _conv_out(sd, "stem"), "GroupNorm_0": _norm_out(sd, "gn0")}
+    for i in range(_count(sd, "blocks")):
+        b = {"Conv_0": _conv_out(sd, f"blocks.{i}.conv1"),
+             "GroupNorm_0": _norm_out(sd, f"blocks.{i}.gn1"),
+             "Conv_1": _conv_out(sd, f"blocks.{i}.conv2"),
+             "GroupNorm_1": _norm_out(sd, f"blocks.{i}.gn2")}
+        if f"blocks.{i}.proj.weight" in sd:
+            b["Conv_2"] = _conv_out(sd, f"blocks.{i}.proj")
+            b["GroupNorm_2"] = _norm_out(sd, f"blocks.{i}.gn3")
+        p[f"ResBlock_{i}"] = b
+    for i in range(_count(sd, "deconvs")):
+        p[f"ConvTranspose_{i}"] = _deconv_out(sd, f"deconvs.{i}")
+        p[f"GroupNorm_{i + 1}"] = _norm_out(sd, f"dgns.{i}")
+    p["Conv_1"] = _conv_out(sd, "final")
+    return {"params": p}
+
+
+def gcn_block_tree(sd: dict) -> dict:
+    """The port's GCNBlock state_dict -> one flax GCNBlock subtree."""
+    m = {}
+    for j in range(_count(sd, "mbtc.dense")):
+        m[f"Dense_{j}"] = _dense_out(sd, f"mbtc.dense.{j}")
+    for j in range(_count(sd, "mbtc.ln")):
+        m[f"LayerNorm_{j}"] = _norm_out(sd, f"mbtc.ln.{j}")
+    for j in range(_count(sd, "mbtc.conv")):
+        w = _n(sd[f"mbtc.conv.{j}.weight"])                  # [ch, 1, k]
+        m[f"Conv_{j}"] = {"kernel": np.ascontiguousarray(w[:, 0, :].T[:, None, None, :])}
+    b = {"SpatialGraphConv_0": {"kernel": _n(sd["sgc.kernel"]),
+                                "edge_importance": _n(sd["sgc.edge_importance"])},
+         "LayerNorm_0": _norm_out(sd, "ln0"),
+         "MultiBranchTemporalConv_0": m,
+         "ChannelAtt_0": {"Dense_0": _dense_out(sd, "ca.fc1"),
+                          "Dense_1": _dense_out(sd, "ca.fc2")},
+         "STJointAtt_0": {"Dense_0": _dense_out(sd, "stja.fused"),
+                          "LayerNorm_0": _norm_out(sd, "stja.norm"),
+                          "Dense_1": _dense_out(sd, "stja.t_fc"),
+                          "Dense_2": _dense_out(sd, "stja.v_fc")}}
+    if "proj.weight" in sd:
+        b["Dense_0"] = _dense_out(sd, "proj")
+    return b
+
+
+def gcn_tree(sd: dict) -> dict:
+    p = {f"GCNBlock_{i}": gcn_block_tree(_sub(sd, f"blocks.{i}"))
+         for i in range(_count(sd, "blocks"))}
+    p["Dense_0"] = _dense_out(sd, "head0")
+    p["Dense_1"] = _dense_out(sd, "head1")
+    return {"params": p}
+
+
+def align_tree(sd: dict) -> dict:
+    p = {"Dense_0": _dense_out(sd, "mixer"), "LayerNorm_0": _norm_out(sd, "mixer_ln")}
+    dense_i = 1
+    for i in range(_count(sd, "convs")):
+        k = _n(sd[f"convs.{i}.weight"])                      # [Cout, Cin, k]
+        p[f"Conv_{i}"] = {"kernel": np.ascontiguousarray(np.transpose(k, (2, 1, 0)))}
+        p[f"LayerNorm_{i + 1}"] = _norm_out(sd, f"lns.{i}")
+        if f"projs.{i}.weight" in sd:
+            p[f"Dense_{dense_i}"] = _dense_out(sd, f"projs.{i}")
+            dense_i += 1
+    p[f"Dense_{dense_i}"] = _dense_out(sd, "embed")
+    return {"params": p}
+
+
+def error_tree(sd: dict) -> dict:
+    return {"params": {"Dense_0": _dense_out(sd, "fc0"), "LayerNorm_0": _norm_out(sd, "ln0"),
+                       "Dense_1": _dense_out(sd, "fc1"), "LayerNorm_1": _norm_out(sd, "ln1"),
+                       "Dense_2": _dense_out(sd, "fc2")}}
+
+
+_TO_FLAX = {"pose": pose_tree, "gcn": gcn_tree, "align": align_tree, "error": error_tree}
+
+
+def to_flax(state_dicts: dict) -> dict:
+    """{model name: torch state_dict} -> {model name: flax tree of numpy}."""
+    return {name: _TO_FLAX[name](sd) for name, sd in state_dicts.items()}

@@ -29,6 +29,9 @@ def _forbidden(name: str) -> bool:
 
 def test_sources_found():
     assert len(SOURCES) > 20
+    found = {str(p.relative_to(PKG)) for p in SOURCES[:-1]}
+    assert {"train/__init__.py", "train/data.py", "train/loops.py", "train/losses.py",
+            "train/metrics.py"} <= found
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))

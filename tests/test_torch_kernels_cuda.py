@@ -99,6 +99,54 @@ def test_wavefront_kernel_matches_plain(dev, B, Ta, Tb, gamma):
         assert torch.equal(pg.cpu(), pw.cpu()) and torch.equal(lg.cpu(), lw.cpu())
 
 
+@pytest.mark.parametrize("H,W", [(64, 48), (16, 12), (5, 7)])
+def test_decode_kernel_matches_plain(dev, H, W):
+    import chip_smoke
+
+    rng = np.random.default_rng(H * W)
+    rand = rng.normal(size=(40, H, W)).astype(np.float32)
+    smooth = np.stack([np.exp(-((np.mgrid[0:H, 0:W][1] - rng.uniform(0, W - 1)) ** 2
+                                + (np.mgrid[0:H, 0:W][0] - rng.uniform(0, H - 1)) ** 2) / 8.0)
+                       for _ in range(40)]).astype(np.float32)
+    hm = torch.from_numpy(np.concatenate([chip_smoke.decode_edge_rows(H, W), rand, smooth])).to(dev)
+    n0 = heatmap.decode_heatmaps.launches
+    got = heatmap.decode_heatmaps(hm, "udp")
+    want = heatmap.decode_heatmaps_plain(hm, "udp")
+    torch.cuda.synchronize()
+    assert heatmap.decode_heatmaps.launches == n0 + 1
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    # Integer peak and score exact; x, y within 1e-4 px (logf and the
+    # Taylor step round the same way on the card, so they are equal there).
+    np.testing.assert_array_equal(np.round(got[:, :2]), np.round(want[:, :2]))
+    np.testing.assert_array_equal(got[:, 2], want[:, 2])
+    np.testing.assert_allclose(got[:, :2], want[:, :2], atol=1e-4)
+    assert got[0].tolist() == [0.0, 0.0, 0.0]                 # all zeros -> (0, 0)
+    assert (np.round(got[1, 0]), np.round(got[1, 1])) == (W // 2, H // 3)   # first of a tie
+
+
+@pytest.mark.parametrize("B,Ta,Tb", [(3, 7, 11), (96, 48, 48), (8, 128, 64), (2, 600, 20)])
+def test_softdtw_backward_kernel_matches_plain(dev, B, Ta, Tb):
+    rng = np.random.default_rng(Ta * Tb)
+    a = torch.from_numpy(rng.normal(size=(B, Ta, 16)).astype(np.float32)).to(dev)
+    c = torch.from_numpy(rng.normal(size=(B, Tb, 16)).astype(np.float32)).to(dev)
+    a, c = (torch.nn.functional.normalize(t, dim=-1) for t in (a, c))
+    D = softdtw.pairwise_sqdist(a, c).contiguous()
+    R = softdtw.wavefront(D, 0.1)
+    n0 = softdtw.softdtw_backward.launches
+    got = softdtw.softdtw_backward(D, R, 0.1)
+    want = softdtw.softdtw_backward_plain(D, R, 0.1)
+    torch.cuda.synchronize()
+    assert softdtw.softdtw_backward.launches == n0 + 1
+    # float32 products of up to Ta+Tb weights: relative error grows with the
+    # path length, so rtol 1e-4 with a floor at 1e-6 of the largest entry.
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4,
+                               atol=1e-6 * float(want.abs().max()))
+    Dg = D.clone().requires_grad_()
+    (g,) = torch.autograd.grad(softdtw.softdtw_cost(Dg[:, :, :], 0.1).sum(), Dg)
+    assert softdtw.softdtw_backward.launches == n0 + 2
+    np.testing.assert_array_equal(g.cpu().numpy(), got.cpu().numpy())
+
+
 def test_tail_weight_layout_agrees_with_the_kernel(dev):
     total = _kernels.bind("gcn_tail", "gcn_tail_layout_total", "ii")
     for C, M in ((16, 8), (64, 16), (256, 64)):
@@ -111,6 +159,11 @@ def test_kernels_refuse_bad_inputs(dev):
                                          torch.zeros((1, 4), device=dev), (4, 4))
     with pytest.raises(ValueError):
         softdtw.wavefront(torch.zeros((1, 4, 4), dtype=torch.float64, device=dev), 0.1)
+    D = torch.zeros((2, 4, 6), device=dev)
+    with pytest.raises(ValueError):
+        softdtw.softdtw_backward(D.transpose(1, 2), D.transpose(1, 2), 0.1)   # strided
+    with pytest.raises(ValueError):
+        softdtw.softdtw_cost(D, 0.0)
     tail = _random_block(16, 16, 0).pack().to(dev)
     with pytest.raises(ValueError):
         gcn_tail.gcn_block_tail(torch.zeros((1, 4, 17, 16), device=dev),
@@ -278,3 +331,36 @@ def test_pipeline_on_card_matches_cpu(dev):
                                    atol=1e-3)
         np.testing.assert_allclose(g.error_probs.cpu().numpy(), c.error_probs.numpy(),
                                    atol=1e-4)
+
+
+def test_trainers_on_card_go_through_their_kernels(dev):
+    """A few narrow steps of each trainer on the card: one forward wavefront
+    and one backward launch per alignment step, crops through kernel A, the
+    evaluation's decode through kernel D, and no launch of the forward-only
+    GCN tail."""
+    from golfaction_tpu_torch.train import data as data_mod
+    from golfaction_tpu_torch.train import loops
+
+    tc = tcfg.TrainConfig(batch_size=4, learning_rate=3e-3, warmup_steps=2, total_steps=5)
+    counts = lambda: (softdtw.wavefront.launches, softdtw.softdtw_backward.launches,  # noqa: E731
+                      gcn_tail.gcn_block_tail.launches, preprocess.crop_resize_normalize.launches,
+                      heatmap.decode_heatmaps.launches)
+    c0 = counts()
+    _, hist = loops.train_align(tcfg.AlignConfig(embed_dim=16, hidden_channels=(8, 16)), tc,
+                                frames_per_clip=16, log_every=1)
+    c1 = counts()
+    assert (c1[0] - c0[0], c1[1] - c0[1]) == (5, 5) and hist[-1]["loss"] < hist[0]["loss"]
+    state, hist = loops.train_gcn(tcfg.GCNConfig(block_channels=(16, 32)), tc, frames_per_clip=16,
+                                  log_every=1)
+    assert counts()[2] == c1[2] and np.isfinite([r["loss"] for r in hist]).all()
+    assert next(state.model.parameters()).device.type == "cuda"
+    pc = _small_cfg().pose
+    state, hist = loops.train_pose(pc, tc, image_hw=(96, 128), clips_per_epoch=1,
+                                   frames_per_clip=8, log_every=1, pool_clips=2)
+    c2 = counts()
+    assert c2[3] - c1[3] == 2 and np.isfinite([r["loss"] for r in hist]).all()
+    samples = data_mod.make_swing_batch(2, 4, seed=1, image_hw=(96, 128), render=True,
+                                        scene_families=data_mod.TRAIN_SCENE_FAMILIES)
+    pck = loops.evaluate_pose(state.model, pc, samples)
+    c3 = counts()
+    assert 0.0 <= pck <= 1.0 and (c3[3] - c2[3], c3[4] - c2[4]) == (2, 2)

@@ -65,6 +65,36 @@ def test_every_leaf_carried_over(shipped, name):
                                   np.sort(torch.cat([t.reshape(-1) for t in tensors]).numpy()))
 
 
+@pytest.mark.parametrize("name", MODELS)
+def test_to_flax_inverts_from_flax(shipped, name):
+    """to_flax(from_flax(p)) == p, leaf for leaf: what the port trains goes
+    back into the JAX package's tree unchanged in name, shape and value."""
+    _, trees, sds = shipped
+    back = dict(_leaves(weights.to_flax({name: sds[name]})[name]))
+    want = dict(_leaves(trees[name]))
+    assert back.keys() == want.keys()
+    for k in want:
+        assert back[k].shape == want[k].shape and back[k].dtype == np.float32, k
+        np.testing.assert_array_equal(back[k], want[k], err_msg=k)
+
+
+@pytest.mark.parametrize("name", MODELS)
+def test_saved_npz_is_the_jax_packages_file(shipped, name, tmp_path):
+    """save_params_npz writes the keys and values that the JAX package's
+    save_params_npz writes for the same tree, and its loader reads them."""
+    _, trees, _ = shipped
+    ours = tckpt.save_params_npz(str(tmp_path / "ours.npz"), trees[name])
+    theirs = jckpt.save_params_npz(str(tmp_path / "theirs.npz"), trees[name])
+    with np.load(ours) as a, np.load(theirs) as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in b.files:
+            assert a[k].dtype == b[k].dtype == np.float16
+            np.testing.assert_array_equal(a[k], b[k])
+    got = dict(_leaves(jckpt.restore_params_npz(ours)))
+    for k, v in _leaves(trees[name]):
+        np.testing.assert_array_equal(got[k], v)        # the shipped leaves are float16 values
+
+
 def test_layouts(shipped):
     _, trees, sds = shipped
     pose, gcn = trees["pose"]["params"], trees["gcn"]["params"]
