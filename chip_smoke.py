@@ -29,12 +29,27 @@ Phases (each prints one line; any failure exits non-zero):
                losses, launch counts (one forward wavefront and one backward
                per alignment step), one alignment and one GCN step against
                the same step on the CPU
+  8. int8     the post-training int8 pose path on the shipped pose checkpoint
+               at full width: the card's integer convolution against a
+               float64 convolution (exact), kernel F against its plain version
+               at all 20 sites of a fused forward on real convolution outputs,
+               then calibrate on 16 rendered crops and evaluate float, int8,
+               fused-int8 and mixed forwards on 64 others (decode through
+               kernel D): PCK@0.05 and milliseconds of each, the fused forward
+               with kernel F against the fused forward with the plain epilogue
+  9. options  the shipped model with box_refine_stride=8 on one 64-frame 1080p
+               clip (finite keypoints, refined boxes inside the frame, one
+               more launch of kernel A for the coarse pass), and a
+               random-weight pipeline with in_frames=3, the spread features
+               and the keypoint refiner, held to the CPU on the card's own
+               heatmaps
 Then a {"kernels": [...]} line and, last, {"ok": true, "device": {...}}.
 
-A kernel's `launches` counts calls of its wrapper, summed over the three
-driven paths (4, 6, 7); each path zeroes the counts just before it runs and
-reads them just after.  The GCN tail's call is three __global__ launches
-(frame tiles, per-clip gates, apply); the others' is one.
+A kernel's `launches` counts calls of its wrapper, summed over the five
+driven paths (4, 6, 7, 8, 9); each path zeroes the counts just before it runs
+and reads them just after.  The GCN tail's call is three __global__ launches
+(frame tiles, per-clip gates, apply), the requant epilogue's three (stats,
+finalize, apply); the others' is one.
 """
 
 from __future__ import annotations
@@ -52,6 +67,10 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 CLIP_T, VIDEO_HW, BATCH_CLIPS = 64, (1080, 1920), 4
 TRAIN_STEPS = 8                # steps each trainer takes
+# The fused int8 forward with kernel F against the same forward with the plain
+# epilogue, heatmap gaps over the largest heatmap value: the largest single
+# gap and the mean gap.
+GAP_MAX, GAP_MEAN = 0.08, 5e-3
 
 
 class SmokeFailure(RuntimeError):
@@ -232,6 +251,16 @@ def softdtw_bwd_bytes_ops(B: int, Ta: int, Tb: int):
     return 3 * B * Ta * Tb * 4, B * Ta * Tb * 45
 
 
+def requant_bytes_ops(numel: int, C: int, res_mode: int, out_bytes: int):
+    """y read once (4 B), the residual once (int8 1 B, int32 4 B), the output
+    written once (int8 1 B, bf16 2 B), the per-channel vectors once; about 13
+    float operations per element (dequantize, two sums, normalize, relu,
+    requantize), 2 more for an int8 residual, 9 for one with its own
+    GroupNorm."""
+    nbytes = numel * (4 + (0, 1, 4)[res_mode] + out_bytes) + C * 4 * (3, 3, 6)[res_mode]
+    return nbytes, numel * (13 + (0, 2, 9)[res_mode])
+
+
 def decode_edge_rows(H: int, W: int) -> np.ndarray:
     """Made-up heatmaps [n, H, W] on the decode's edge cases: all zeros, two
     equal maxima (the first must win), a peak in each corner and on each
@@ -306,6 +335,43 @@ class Replay(torch.nn.Module):
         return out
 
 
+def replay_on_cpu(tag: str, pipe, cpu, small, small_boxes, ref_small) -> None:
+    """The program after the pose network, held to the CPU on the card's own
+    heatmaps: random weights give near-tied peaks, so the two devices' own
+    heatmaps (equal to float noise) may decode to different peaks.  `cpu` is
+    the same pipeline on the CPU; its pose network is replaced by a replay."""
+    seen = []
+    handle = pipe.pose_model.register_forward_hook(lambda m, a, out: seen.append(out.cpu()))
+    try:
+        r_gpu = pipe.analyze_batch(small, boxes=small_boxes, reference=ref_small)
+    finally:
+        handle.remove()
+    cpu.pose_model = Replay(seen)
+    r_cpu = cpu.analyze_batch(small, boxes=small_boxes, reference=ref_small)
+    check(cpu.pose_model.calls == len(seen), f"{tag}: the CPU replay made other pose calls")
+    diffs = {"keypoints": 0.0, "phase_logits": 0.0, "error_probs": 0.0, "cost_rel": 0.0}
+    clear = total = 0
+    for g, c in zip(r_gpu, r_cpu):
+        for k in ("keypoints", "phase_logits", "error_probs"):
+            diffs[k] = max(diffs[k], float((getattr(g, k).cpu() - getattr(c, k)).abs().max()))
+        diffs["cost_rel"] = max(diffs["cost_rel"], float(
+            (g.alignment.cost.cpu() - c.alignment.cost).abs() / c.alignment.cost.abs()))
+        # Labels where the CPU's top two logits are further apart than the
+        # logit tolerance allows the card to move them.
+        top2 = c.phase_logits.topk(2, dim=-1).values
+        sure = c.valid & ((top2[:, 0] - top2[:, 1]) > 2e-3)
+        clear, total = clear + int(sure.sum()), total + int(c.valid.sum())
+        check(torch.equal(g.phase_labels.cpu()[sure], c.phase_labels[sure]),
+              f"{tag}: phase labels differ from the CPU")
+        check(torch.equal(g.alignment.path.cpu(), c.alignment.path),
+              f"{tag}: path differs from the CPU")
+    atol = {"keypoints": 1e-2, "phase_logits": 1e-3, "error_probs": 1e-4, "cost_rel": 1e-4}
+    say(tag, frames=len(small[0]), clips=len(small), replayed_pose_calls=len(seen),
+        max_diff=diffs, atol=atol, labels_compared=clear, labels_valid=total, paths="exact")
+    check(all(diffs[k] <= atol[k] for k in atol),
+          f"{tag}: card and CPU disagree after the pose network")
+
+
 def single_peak_phase(clips, boxes, counters) -> dict:
     """The `full_pipeline` preset as it is: decode_tracking 0, so the pose
     pass decodes through kernel D.  Random weights from seed 0."""
@@ -334,44 +400,12 @@ def single_peak_phase(clips, boxes, counters) -> dict:
         decode_tracking=cfg.pose.decode_tracking, seconds=round(seconds, 3), launches=launches,
         results=2 + len(res_batch), ok=True)
 
-    # The program after the pose network, held to the CPU on the card's own
-    # heatmaps: random weights give near-tied peaks, so the two devices'
-    # own heatmaps (equal to float noise) may decode to different peaks.
     small = [c[:20] for c in clips[2:4]]
     small_boxes = [b[:20] for b in boxes[2:4]]
     ref_small = Skeleton(keypoints=reference.keypoints[:40].cpu(),
                          valid=reference.valid[:40].cpu())
-    seen = []
-    handle = pipe.pose_model.register_forward_hook(lambda m, a, out: seen.append(out.cpu()))
-    try:
-        r_gpu = pipe.analyze_batch(small, boxes=small_boxes, reference=ref_small)
-    finally:
-        handle.remove()
-    cpu = Pipeline(cfg, device="cpu", seed=0)
-    cpu.pose_model = Replay(seen)
-    r_cpu = cpu.analyze_batch(small, boxes=small_boxes, reference=ref_small)
-    check(cpu.pose_model.calls == len(seen), "the CPU replay made other pose calls")
-    diffs = {"keypoints": 0.0, "phase_logits": 0.0, "error_probs": 0.0, "cost_rel": 0.0}
-    clear = total = 0
-    for g, c in zip(r_gpu, r_cpu):
-        for k in ("keypoints", "phase_logits", "error_probs"):
-            diffs[k] = max(diffs[k], float((getattr(g, k).cpu() - getattr(c, k)).abs().max()))
-        diffs["cost_rel"] = max(diffs["cost_rel"], float(
-            (g.alignment.cost.cpu() - c.alignment.cost).abs() / c.alignment.cost.abs()))
-        # Labels where the CPU's top two logits are further apart than the
-        # logit tolerance allows the card to move them.
-        top2 = c.phase_logits.topk(2, dim=-1).values
-        sure = c.valid & ((top2[:, 0] - top2[:, 1]) > 2e-3)
-        clear, total = clear + int(sure.sum()), total + int(c.valid.sum())
-        check(torch.equal(g.phase_labels.cpu()[sure], c.phase_labels[sure]),
-              "single-peak phase labels differ from the CPU")
-        check(torch.equal(g.alignment.path.cpu(), c.alignment.path),
-              "single-peak path differs from the CPU")
-    atol = {"keypoints": 1e-2, "phase_logits": 1e-3, "error_probs": 1e-4, "cost_rel": 1e-4}
-    say("single_peak_cpu", frames=20, clips=2, replayed_pose_calls=len(seen), max_diff=diffs,
-        atol=atol, labels_compared=clear, labels_valid=total, paths="exact")
-    check(all(diffs[k] <= atol[k] for k in atol),
-          "card and CPU disagree after the pose network on the single-peak path")
+    replay_on_cpu("single_peak_cpu", pipe, Pipeline(cfg, device="cpu", seed=0), small,
+                  small_boxes, ref_small)
     return launches
 
 
@@ -491,6 +525,305 @@ def train_phase(counters) -> dict:
     return launches
 
 
+def int_conv_exact() -> None:
+    """The card's integer convolution (strided patches + torch._int_mm)
+    against a float64 convolution on full-range random int8: at the stem, at
+    a 3x3 layer 512 channels deep (127 * 127 * 4608 passes 2^24) and at a
+    transposed convolution."""
+    from golfaction_tpu_torch.models import pose_quant as pq
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(3)
+
+    def i8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8).to(dev)
+
+    out = {}
+    for name, k, stride, cin, cout, hw, n in (("stem", 7, 2, 3, 64, (256, 192), 16),
+                                              ("conv3x3x512", 3, 1, 512, 512, (8, 6), 64)):
+        x, w = i8(n, *hw, cin), i8(k, k, cin, cout)
+        got = pq.conv_i8(x, w.reshape(-1, cout), k, stride)
+        xp = pq._pad_hw(x, k, stride).permute(0, 3, 1, 2).double()
+        want = F.conv2d(xp, w.permute(3, 2, 0, 1).double(), stride=stride).permute(0, 2, 3, 1)
+        out[name] = {"shape": list(got.shape), "largest": int(got.abs().max()),
+                     "equal": bool(torch.equal(got.double(), want))}
+    x, w = i8(64, 8, 6, 512), i8(4, 4, 512, 256)
+    got = pq.deconv_i8(x, w.reshape(-1, 256))
+    # flax's unflipped [kh, kw, I, O] is ConvTranspose2d's [I, O, kh, kw] flipped.
+    want = F.conv_transpose2d(x.permute(0, 3, 1, 2).double(),
+                              w.permute(2, 3, 0, 1).flip(2, 3).double(), stride=2, padding=1)
+    out["deconv4x4"] = {"shape": list(got.shape), "largest": int(got.abs().max()),
+                        "equal": bool(torch.equal(got.double(), want.permute(0, 2, 3, 1)))}
+    say("int_conv_exact", route="strided int8 patches + torch._int_mm", against="float64 conv",
+        results=out)
+    check(all(v["equal"] for v in out.values()), "the integer convolution is not exact")
+
+
+def int8_phase(counters, err: dict) -> tuple[dict, dict]:
+    """The int8 pose path at full width on the shipped pose checkpoint.
+    Returns (launches, kernel F's entry for the kernels line)."""
+    from golfaction_tpu_torch import quantize_eval as qe
+    from golfaction_tpu_torch.models import pose_quant as pq
+    from golfaction_tpu_torch.ops import requant
+    from golfaction_tpu_torch.ops.heatmap import decode_heatmaps_plain as heatmap_decode
+
+    dev = torch.device("cuda")
+    int_conv_exact()
+    model = qe.load_pose_model("artifacts", device=dev)
+    cfg = model.cfg
+    check(cfg.stage_channels == (64, 128, 256, 512) and tuple(cfg.input_hw) == (256, 192),
+          "the shipped pose model is not at full width")
+    t0 = time.perf_counter()
+    calib, _, _ = qe.render_crops(model, 2, 8, 660_000, (540, 960))
+    crops, gt, boxes = qe.render_crops(model, 8, 8, 661_000, (540, 960))
+    check(calib.shape[0] == 16 and crops.shape[0] == 64, "calibration/evaluation crop counts")
+    say("int8_render", calib=16, eval=64, hw=[540, 960], seconds=round(time.perf_counter() - t0, 3))
+
+    # parity_requant: kernel F against its plain version at every site of a
+    # fused forward, on the shipped model's own int32 convolution outputs.
+    with torch.inference_mode():
+        qweights, scales = pq.prepare_int8(model, calib)
+    sites, kept = [], {}
+
+    def both(y, sy, gamma, beta, groups, **kw):
+        got = requant.requant_epilogue(y, sy, gamma, beta, groups, **kw)
+        want = requant.requant_epilogue_plain(y, sy, gamma, beta, groups, **kw)
+        mode = requant._residual_mode(kw.get("residual"))
+        N, H, W, C = y.shape
+        site = {"R": H * W, "C": C, "residual": ("none", "int8", "conv")[mode],
+                "out": "bf16" if kw.get("out_scale") is None else "int8"}
+        if site["out"] == "int8":
+            d = (got.int() - want.int()).abs()
+            site["max_diff_lsb"] = int(d.max())
+            site["share_off"] = float((d != 0).float().mean())
+            ok = site["max_diff_lsb"] <= 1 and site["share_off"] < 1e-3
+        else:
+            w = want.float()
+            ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp(min=1e-30))) - 7)
+            gap = (got.float() - w).abs()
+            site["max_abs_err"] = float(gap.max())
+            ok = bool((gap <= ulp.clamp(min=1e-5)).all())
+        site["ok"] = ok
+        sites.append(site)
+        key = (site["R"], site["C"], site["residual"], site["out"])
+        if key in kept:
+            kept[key]["count"] += 1
+        else:
+            kept[key] = {"count": 1, "args": (y, sy, gamma, beta, groups), "kw": kw,
+                         "mode": mode}
+        return got
+
+    with torch.inference_mode():
+        pq.pose_forward_int8_fused(model, qweights, scales, crops, epilogue=both)
+    torch.cuda.synchronize()
+    check(len(sites) == 20, f"a fused forward has {len(sites)} epilogue sites, not 20")
+    say("parity_requant", batch=64, sites=sites, distinct_shapes=len(kept),
+        int8_limit="at most 1 LSB on under 0.1%",
+        bf16_limit="one bfloat16 ulp (1e-5 where the terms cancel)")
+    check(all(s_["ok"] for s_ in sites), "kernel F disagrees with its plain version")
+    err["requant"] = float(max(s_.get("max_diff_lsb", 0) for s_ in sites))
+
+    # Kernel F's times: each distinct site shape, weighted by how many sites
+    # of a forward have it.
+    tot = {"ms": 0.0, "graph_ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "ops": 0.0}
+    per_shape = []
+    with torch.inference_mode():
+        for (R, C, res, out_t), k in kept.items():
+            a, kw = k["args"], k["kw"]
+            ms = cuda_ms(lambda: requant.requant_epilogue(*a, **kw), reps=10)
+            gms = graph_ms(lambda: requant.requant_epilogue(*a, **kw), calls=10, reps=5)
+            plain = cuda_ms(lambda: requant.requant_epilogue_plain(*a, **kw), reps=3, warmup=1)
+            nb, ops = requant_bytes_ops(a[0].numel(), C, k["mode"], 1 if out_t == "int8" else 2)
+            bms, by = bound(nb, ops)
+            per_shape.append({"R": R, "C": C, "residual": res, "out": out_t, "sites": k["count"],
+                              "ms": ms, "graph_ms": gms, "plain_ms": plain, "bound_ms": bms,
+                              "bound_by": by})
+            for key, v in (("ms", ms), ("graph_ms", gms), ("plain_ms", plain), ("bytes", nb),
+                           ("ops", ops)):
+                tot[key] += v * k["count"]
+        stem = next(k for (R, C, _, _), k in kept.items() if R == 12288)
+        y, sy, gamma, beta, groups = stem["args"]
+        deq = (y.float() * sy).permute(0, 3, 1, 2).contiguous()
+        lib = cuda_ms(lambda: F.group_norm(deq, groups, gamma, beta, eps=1e-6), reps=10)
+        del deq
+    kept.clear()
+    torch.cuda.empty_cache()
+    bms, by = bound(tot["bytes"], tot["ops"])
+    entry = dict(name="requant_epilogue", route="cuda",
+                 source="golfaction_tpu_torch/csrc/requant.cu",
+                 replaces="golfaction_tpu/ops/pallas/requant_kernel.py:168",
+                 launches=0, max_abs_err=err["requant"], ms=tot["ms"], plain_ms=tot["plain_ms"],
+                 bound_ms=bms, bound_by=by, library_ms=lib, graph_ms=tot["graph_ms"],
+                 shape="the 20 sites of one fused forward at batch 64 (max_abs_err in int8 "
+                       "LSB; library_ms is F.group_norm alone on the dequantized float32 "
+                       "stem tensor [64, 64, 128, 96], the middle of one site)",
+                 bytes=tot["bytes"], ops=tot["ops"])
+    say("time_requant_sites", per_shape=per_shape)
+
+    # int8_path: the evaluation a user runs, through the entry point.
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = qe.evaluate(model, calib, crops, gt, boxes, reps=5)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    calls = 1 + 1 + 5                      # one for the PCK, one warm, five timed
+    check(launches["requant"] == 20 * calls,
+          f"{launches['requant']} launches of kernel F for {calls} fused forwards")
+    check(launches["decode"] == 6, f"{launches['decode']} decode launches for six forwards")
+    # The whole fused forward with kernel F against the same forward with the
+    # plain epilogue.  Site by site on equal inputs they differ by 1 LSB on a
+    # few elements in ten million (parity_requant); along the chain each such
+    # element moves the next convolution's sums, so the share of elements
+    # that differ grows from site to site and the heatmaps differ by a few
+    # int8 steps of the last activations.
+    plain_outs, differ = [], []
+
+    def keep_plain(*a, **kw):
+        plain_outs.append(requant.requant_epilogue_plain(*a, **kw))
+        return plain_outs[-1]
+
+    def against_plain(*a, **kw):
+        out = requant.requant_epilogue(*a, **kw)
+        differ.append(float((out != plain_outs[len(differ)]).float().mean()))
+        return out
+
+    with torch.inference_mode():
+        hm_p = pq.pose_forward_int8_fused(model, qweights, scales, crops, epilogue=keep_plain)
+        hm_k = pq.pose_forward_int8_fused(model, qweights, scales, crops,
+                                          epilogue=against_plain)
+        kp_k = heatmap_decode(hm_k)
+        kp_p = heatmap_decode(hm_p)
+        torch.backends.cudnn.allow_tf32 = True
+        ms_tf32 = qe.forward_ms(lambda: model(crops), dev)
+        torch.backends.cudnn.allow_tf32 = False
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            pq.pose_forward_int8_fused(model, qweights, scales, crops)
+            torch.cuda.synchronize()
+    rows = device_kernel_rows(prof)
+    top = sorted(rows, key=dev_us, reverse=True)[:10]
+    busy_ms = sum(dev_us(e) for e in rows) / 1e3
+    say("int8_profile", region="one fused int8 forward, 64 crops",
+        device_busy_ms=busy_ms if rows else "not measured",
+        device_idle_share=(1 - busy_ms / result["ms_int8_fused"]) if rows else "not measured",
+        kernel_f_ms=sum(dev_us(e) for e in rows if "requant" in e.key or "stats_kernel" in e.key
+                        or "apply_kernel" in e.key or "finalize_kernel" in e.key) / 1e3,
+        top=[[e.key[:70], dev_us(e) / 1e3, e.count] for e in top])
+    plain_outs.clear()
+    largest = float(hm_p.abs().max())
+    gap = float((hm_k - hm_p).abs().max()) / largest
+    mean_gap = float((hm_k - hm_p).abs().mean()) / largest
+    kp_gap = (kp_k[..., :2] - kp_p[..., :2]).abs().amax(-1)
+    say("int8_path", config="artifacts/params/pose.npz, PoseConfig() widths", crops=64,
+        seconds=round(seconds, 3), launches=launches, result=result,
+        ms_float_cudnn_tf32=ms_tf32, float_is="float32, TF32 off",
+        fused_kernel_vs_plain={"max_gap_rel": gap, "mean_gap_rel": mean_gap,
+                               "share_of_elements_that_differ_by_site": differ,
+                               "decoded_keypoints_max_gap_px": float(kp_gap.max()),
+                               "decoded_keypoints_over_half_px": float((kp_gap > 0.5).float().mean())},
+        limits={"max_gap_rel": GAP_MAX, "mean_gap_rel": GAP_MEAN, "keypoints_over_half_px": 0.01,
+                "pck": 0.05})
+    check(all(np.isfinite(result[k]) for k in ("pck_float", "pck_int8", "pck_int8_fused",
+                                               "ms_float", "ms_int8", "ms_int8_fused")),
+          "int8 evaluation: non-finite result")
+    check(bool(torch.isfinite(hm_k).all()) and tuple(hm_k.shape) == (64, 17, 64, 48),
+          "fused int8 heatmaps")
+    check(gap <= GAP_MAX and mean_gap <= GAP_MEAN,
+          "fused forward: kernel F and the plain epilogue give other heatmaps")
+    check(float((kp_gap > 0.5).float().mean()) <= 0.01,
+          "fused forward: kernel F and the plain epilogue decode to other keypoints")
+    check(abs(result["pck_int8_fused"] - result["pck_float"]) <= 0.05,
+          "fused int8 PCK is off the float PCK")
+    return launches, entry
+
+
+def options_phase(clips, boxes, counters) -> dict:
+    """The pose pass's options on the card: box refinement with the shipped
+    model, then temporal context, spread features and the refiner together
+    at random weights against the CPU."""
+    import dataclasses
+
+    from golfaction_tpu_torch import checkpoint, weights
+    from golfaction_tpu_torch.config import PoseConfig, RefineConfig, get_config
+    from golfaction_tpu_torch.pipeline.orchestrator import Pipeline
+    from golfaction_tpu_torch.types import Skeleton
+
+    H, W = VIDEO_HW
+    base = checkpoint.config_for_artifacts(get_config("full_pipeline"), "artifacts")
+    cfg = dataclasses.replace(base, box_refine_stride=8)
+    pipe = Pipeline(cfg, weights.from_flax(checkpoint.load_params("artifacts")), device="cuda",
+                    error_thresholds=checkpoint.load_error_thresholds("artifacts"))
+    seen = []
+    pass_ = pipe._pose_pass
+    pipe._pose_pass = lambda f, b, **kw: (seen.append(b), pass_(f, b, **kw))[1]
+    for fn in counters.values():
+        fn.launches = 0
+    res = pipe.analyze(clips[0])                 # host boxes: the refinement replaces them
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    check(len(seen) == 2 and seen[0].shape[1] == CLIP_T // 8, "box refinement: pose passes")
+    rb = seen[1][0]
+    inside = bool(((rb[:, 0] >= 0) & (rb[:, 0] <= W - 1) & (rb[:, 1] >= 0) & (rb[:, 1] <= H - 1)
+                   & (rb[:, 2:] > 0).all(-1) & (rb[:, 2] <= 1.2 * W) & (rb[:, 3] <= 1.2 * H)).all())
+    want_pre = -(-(CLIP_T // 8) // cfg.frame_batch) + -(-CLIP_T // cfg.frame_batch)
+    say("options_box_refine", stride=8, frames=CLIP_T, launches=launches,
+        preprocess_launches_without=-(-CLIP_T // cfg.frame_batch), boxes_inside=inside,
+        box_mean=[round(float(v), 2) for v in rb.mean(0)], truth_box=[
+            round(float(v), 2) for v in boxes[0].mean(0)])
+    check(bool(torch.isfinite(res.keypoints).all()), "box refinement: keypoints not finite")
+    check(inside, "box refinement: a refined box lies outside the frame")
+    check(launches["preprocess"] == want_pre,
+          f"box refinement: {launches['preprocess']} launches of kernel A, expected {want_pre}")
+    del pipe
+
+    cfg = get_config("full_pipeline")
+    cfg = dataclasses.replace(
+        cfg, pose=dataclasses.replace(cfg.pose, in_frames=3),
+        error=dataclasses.replace(cfg.error, spread_features=True),
+        refine=RefineConfig(enabled=True))
+    check(cfg.pose == PoseConfig(in_frames=3), "options: the pose model is not at full width")
+    pipes = {d: Pipeline(cfg, device=d, seed=0) for d in ("cuda", "cpu")}
+    head = torch.randn((2, cfg.refine.block_channels[-1]),
+                       generator=torch.Generator().manual_seed(5)) * 0.1
+    for p in pipes.values():                     # a zero head would be the identity
+        with torch.no_grad():
+            p.refine_model.head.weight.copy_(head)
+    pipe = pipes["cuda"]
+    before = {k: fn.launches for k, fn in counters.items()}
+    r0 = pipe.analyze(clips[1], boxes=boxes[1])
+    reference = pipe.extract_skeleton(r0)
+    r1 = pipe.analyze(clips[0], boxes=boxes[0], reference=reference)
+    torch.cuda.synchronize()
+    check_results([r0, r1], reference)
+    for k in launches:
+        launches[k] += counters[k].launches - before[k]
+    check(counters["preprocess"].launches - before["preprocess"] == 2 * 3,
+          "in_frames=3: kernel A runs once per neighbour offset")
+    say("options_context_spread_refine", in_frames=3, spread_features=True, refine=True,
+        launches={k: counters[k].launches - before[k] for k in counters})
+    small = [c[:20] for c in clips[2:4]]
+    small_boxes = [b[:20] for b in boxes[2:4]]
+    ref_small = Skeleton(keypoints=reference.keypoints[:40].cpu(),
+                         valid=reference.valid[:40].cpu())
+    replay_on_cpu("options_cpu", pipe, pipes["cpu"], small, small_boxes, ref_small)
+    return launches
+
+
+def dev_us(e) -> float:
+    return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+
+
+def device_kernel_rows(prof) -> list:
+    """A profile's kernel rows only: operator rows carry their kernels' time again."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
+
+
 def breakdown(pipe, clips, boxes, reference) -> None:
     """Where one analyze_batch chunk spends its time: host stage times
     (each ends in a synchronize), then a torch.profiler trace of the device
@@ -528,12 +861,7 @@ def breakdown(pipe, clips, boxes, reference) -> None:
         wall_ms = (time.perf_counter() - t) * 1e3
     say("breakdown", clips=len(clips), **stages)
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
-
-    # Kernel rows only: operator rows carry their kernels' time again.
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
+    kernels = device_kernel_rows(prof)
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
     window_ms = stages["core_ms"] + stages["align_ms"]      # the same work, unprofiled
     top = sorted(kernels, key=dev_us, reverse=True)[:12]
@@ -550,7 +878,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this script needs "
               "a CUDA card", file=sys.stderr)
         return 2
-    from golfaction_tpu_torch.ops import _kernels, gcn_tail, heatmap, preprocess, softdtw
+    from golfaction_tpu_torch.ops import (_kernels, gcn_tail, heatmap, preprocess, requant,
+                                          softdtw)
     from golfaction_tpu_torch.pipeline.orchestrator import Pipeline
     from golfaction_tpu_torch.types import Skeleton
 
@@ -683,7 +1012,8 @@ def main() -> int:
     # 4. main path ----------------------------------------------------------
     counters = {"preprocess": preprocess.crop_resize_normalize,
                 "gcn_tail": gcn_tail.gcn_block_tail, "softdtw": softdtw.wavefront,
-                "decode": heatmap.decode_heatmaps, "softdtw_bwd": softdtw.softdtw_backward}
+                "decode": heatmap.decode_heatmaps, "softdtw_bwd": softdtw.softdtw_backward,
+                "requant": requant.requant_epilogue}
     for fn in counters.values():
         fn.launches = 0
     torch.cuda.synchronize()
@@ -843,12 +1173,18 @@ def main() -> int:
         smoke_seconds=round(time.perf_counter() - wall0, 3))
     breakdown(pipe, clips[2:], boxes[2:], reference)
 
-    # 6, 7. the single-peak pipeline and the trainers ---------------------------
+    # 6-9. the single-peak pipeline, the trainers, the int8 path, the options ----
     del pipe, cpu
     torch.cuda.empty_cache()
     paths = {"main": launches, "single_peak": single_peak_phase(clips, boxes, counters),
              "train": train_phase(counters)}
-    names = ("preprocess", "gcn_tail", "softdtw", "decode", "softdtw_bwd")
+    paths["int8_path"], requant_entry = int8_phase(counters, err)
+    entries.append(requant_entry)
+    say("time", **{k: requant_entry[k] for k in ("name", "ms", "graph_ms", "plain_ms",
+                                                 "bound_ms", "bound_by", "library_ms", "shape")})
+    torch.cuda.empty_cache()
+    paths["options"] = options_phase(clips, boxes, counters)
+    names = ("preprocess", "gcn_tail", "softdtw", "decode", "softdtw_bwd", "requant")
     for en, k in zip(entries, names):
         en["launches"] = sum(p[k] for p in paths.values())
         check(en["launches"] > 0, f"kernel {k} was launched on no driven path")

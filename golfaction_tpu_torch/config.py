@@ -107,7 +107,7 @@ class ErrorConfig:
     in_channels: int = 3
     hidden_dim: int = 256
     dtype: str = "bfloat16"
-    # Heatmap-spread features (+2*V feature channels); not ported yet.
+    # Heatmap-spread features (+2*V feature channels).
     spread_features: bool = False
     # Secondary-mode features (+3*V); requires pose.decode_tracking >= 2.
     mode_features: bool = False
@@ -115,7 +115,7 @@ class ErrorConfig:
 
 @dataclasses.dataclass(frozen=True)
 class RefineConfig:
-    """Keypoint-sequence refiner (opt-in; not ported yet)."""
+    """Keypoint-sequence refiner (opt-in)."""
 
     enabled: bool = False
     block_channels: tuple[int, ...] = (48, 48)
@@ -152,7 +152,8 @@ class PipelineConfig:
     preprocess_dtype: str = "float32"
     # analyze_batch processes clips in chunks of this many.
     clip_batch: int = 8
-    # Keypoint-seeded box refinement stride; 0 = off (the only value ported).
+    # Keypoint-seeded box refinement: a coarse pose pass every this many
+    # frames seeds the boxes of the full pass; 0 = off.
     box_refine_stride: int = 0
 
 

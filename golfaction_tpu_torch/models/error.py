@@ -3,7 +3,7 @@
 Per-frame features of the clip-normalized, temporally smoothed skeleton
 (joint positions, velocities, joint angles and their velocities, optional
 deviations from a DTW-aligned reference swing, optional secondary-heatmap-
-mode features) are pooled per swing phase with the phase posteriors as soft
+mode or heatmap-spread features) are pooled per swing phase with the phase posteriors as soft
 weights, then an MLP emits one logit per fault (multi-label).
 """
 
@@ -90,8 +90,6 @@ class ErrorClassifier(nn.Module):
         if cfg.spread_features and cfg.mode_features:
             raise ValueError("spread_features and mode_features are "
                              "mutually exclusive aux-channel semantics")
-        if cfg.spread_features:
-            raise NotImplementedError("error.spread_features is not ported yet")
         self.cfg = cfg
         self.fc0 = nn.Linear(feature_dim(cfg), cfg.hidden_dim)
         self.ln0 = LayerNorm(cfg.hidden_dim)
@@ -141,6 +139,27 @@ class ErrorClassifier(nn.Module):
                     u = diff / torch.linalg.norm(diff, dim=-1, keepdim=True).clamp(min=1e-6)
                     proj = (u * off).sum(-1) * w
                 blocks.append(torch.cat([w * sep, rel, proj], dim=-1))
+
+        if cfg.spread_features:
+            # Heatmap-spread block from aux (cov_xx, cov_xy, cov_yy, floor) in
+            # image px², floor being the training target's spread: the
+            # isotropic excess, and the excess along the reference-deviation
+            # direction, both in units of the clip scale.
+            if aux is None:
+                blocks.append(torch.zeros((B, T, 2 * V), device=x.device))
+            else:
+                sp = _smooth_time(aux.float(), valid)
+                sp = sp / clip_scale.clamp(min=1e-3)[:, None, None, None] ** 2
+                cxx, cxy, cyy, floor = sp.unbind(-1)
+                iso = torch.sqrt((0.5 * (cxx + cyy) - floor).clamp(min=0.0))
+                if diff is None:
+                    dir_exc = torch.zeros((B, T, V), device=x.device)
+                else:
+                    u = diff / torch.linalg.norm(diff, dim=-1, keepdim=True).clamp(min=1e-6)
+                    var_u = (u[..., 0] ** 2 * cxx + 2.0 * u[..., 0] * u[..., 1] * cxy
+                             + u[..., 1] ** 2 * cyy)
+                    dir_exc = torch.sqrt((var_u - floor).clamp(min=0.0))
+                blocks.append(torch.cat([dir_exc, iso], dim=-1))
 
         feat = F.relu(self.ln0(self.fc0(torch.cat(blocks, dim=-1))))
         # Soft per-phase pooling: weights = phase posterior, masked+normalized.

@@ -23,7 +23,7 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
-SOURCES = ("preprocess", "gcn_tail", "softdtw", "decode", "softdtw_bwd")
+SOURCES = ("preprocess", "gcn_tail", "softdtw", "decode", "softdtw_bwd", "requant")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")

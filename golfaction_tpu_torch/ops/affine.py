@@ -84,3 +84,56 @@ def compose(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     t = torch.stack([A[..., i, 0] * tb[..., 0] + A[..., i, 1] * tb[..., 1]
                      for i in range(2)], dim=-1) + ta
     return torch.cat([M, t[..., None]], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Keypoint-seeded box tracking
+# ---------------------------------------------------------------------------
+
+def boxes_from_keypoints(kpts: torch.Tensor, image_hw: tuple[int, int], margin: float = 1.2,
+                         min_size: float = 48.0) -> torch.Tensor:
+    """Tight person boxes from decoded keypoints.
+
+    kpts [..., V, >=2] image-space keypoints -> boxes [..., 4] (cx, cy, w, h).
+    `margin` expands the keypoint extent (a skeleton underestimates the
+    silhouette); `min_size` floors degenerate extents (bad coarse decode).
+    """
+    H, W = image_hw
+    xy = kpts[..., :2].float()
+    lo = xy.amin(dim=-2)
+    hi = xy.amax(dim=-2)
+    top = torch.tensor([W - 1.0, H - 1.0], dtype=torch.float32, device=xy.device)
+    c = torch.minimum(((lo + hi) / 2).clamp(min=0.0), top)
+    wh = ((hi - lo) * margin).clamp(min=min_size)
+    return torch.cat([c, wh], dim=-1)
+
+
+def smooth_boxes(boxes: torch.Tensor, window: int = 9) -> torch.Tensor:
+    """Temporal moving average over boxes [T, 4] (edge-padded): a cumulative
+    sum and one difference, as the reference takes it."""
+    T = boxes.shape[0]
+    k = min(window, T if T % 2 else max(T - 1, 1))
+    if k <= 1:
+        return boxes
+    pad = k // 2
+    padded = torch.cat([boxes.new_zeros((1, 4)), boxes[:1].expand(pad, 4), boxes,
+                        boxes[-1:].expand(pad, 4)])
+    cs = torch.cumsum(padded, dim=0)
+    return (cs[k:] - cs[:-k]) / k
+
+
+def interp_boxes(boxes_s: torch.Tensor, stride: int, T: int) -> torch.Tensor:
+    """Linearly upsample strided boxes [ceil(T/stride), 4] to [T, 4].
+
+    Row i of the input corresponds to frame i*stride; frames past the last
+    strided sample hold its value.
+    """
+    Ts = boxes_s.shape[0]
+    if Ts == 1:
+        return boxes_s.expand(T, 4)
+    tq = torch.arange(T, dtype=torch.float32, device=boxes_s.device)
+    i = torch.div(tq, stride, rounding_mode="floor").long().clamp(max=Ts - 2)
+    lo, hi = boxes_s[i], boxes_s[i + 1]
+    frac = ((tq - i.float() * stride) / tq.new_tensor(float(stride)))[:, None]
+    out = lo + frac * (hi - lo)
+    return torch.where((tq > (Ts - 1) * stride)[:, None], boxes_s[-1], out)

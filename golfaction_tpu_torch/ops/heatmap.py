@@ -1,5 +1,6 @@
 """Heatmap keypoint decode: single-peak decode with sub-pixel refinement,
-top-k non-max-suppressed modes, and Viterbi mode tracking over a clip.
+top-k non-max-suppressed modes, Viterbi mode tracking over a clip, and the
+windowed heatmap moments of the spread features.
 
 All functions take heatmaps [..., K, H, W] and are vectorized over the
 batch dims; coordinates are in heatmap pixel space (corner-aligned) until
@@ -156,6 +157,34 @@ def topk_modes(heatmaps: torch.Tensor, k: int = 4, suppress_radius: float = 3.0,
         x = x + off_x
         y = y + off_y
     return torch.stack([x, y, pk], dim=-1)
+
+
+def moment_stats(heatmaps: torch.Tensor, radius: float = 8.0) -> torch.Tensor:
+    """Windowed first and second moments of heatmaps [..., H, W] -> [..., 5]:
+    (mu_x, mu_y, cov_xx, cov_xy, cov_yy) in heatmap pixel units, of the
+    positive-clipped heatmap inside a `radius`-px disk around the argmax peak
+    (the window keeps far-field blobs of other body parts out of the
+    covariance).
+
+    A deflected joint whose two belief components sit closer than two sigma
+    merges into one elongated blob that no mode decode can split; its second
+    moment still carries the separation: the variance along the separation
+    axis is sigma^2 + w(1-w) d^2 for weights (1-w, w) at distance d."""
+    H, W = heatmaps.shape[-2:]
+    dev = heatmaps.device
+    ys = torch.arange(H, dtype=torch.float32, device=dev)[:, None]
+    xs = torch.arange(W, dtype=torch.float32, device=dev)[None, :]
+    x_i, y_i, _ = _peak_coords(heatmaps)
+    d2 = (xs - x_i[..., None, None].float()) ** 2 + (ys - y_i[..., None, None].float()) ** 2
+    w = heatmaps.float().clamp(min=0.0)
+    w = torch.where(d2 <= float(radius) ** 2, w, torch.zeros_like(w))
+    z = w.sum((-2, -1)).clamp(min=1e-9)
+    mux = (w * xs).sum((-2, -1)) / z
+    muy = (w * ys).sum((-2, -1)) / z
+    cxx = (w * xs * xs).sum((-2, -1)) / z - mux * mux
+    cyy = (w * ys * ys).sum((-2, -1)) / z - muy * muy
+    cxy = (w * xs * ys).sum((-2, -1)) / z - mux * muy
+    return torch.stack([mux, muy, cxx, cxy, cyy], dim=-1)
 
 
 def viterbi_track(modes: torch.Tensor, lam: float = 0.1, eps: float = 1e-6) -> torch.Tensor:

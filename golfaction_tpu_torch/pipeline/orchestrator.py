@@ -2,8 +2,11 @@
 alignment against a reference swing, and swing-fault flags out.
 
 Stages per clip (frames padded to a length bucket, `valid` marks real ones):
-crop/resize/normalize (kernel A) -> PoseNet -> heatmap decode (single peak
-through kernel D, or the tracked top-k decode) -> skeleton normalize -> GCN
+[coarse pose pass on every k-th frame from full-frame boxes -> smoothed
+keypoint-seeded boxes, when box_refine_stride > 0] -> crop/resize/normalize
+(kernel A, once per neighbour offset when pose.in_frames > 1) -> PoseNet ->
+heatmap decode (single peak through kernel D, or the tracked top-k decode)
+[-> keypoint refiner, when the params carry one] -> skeleton normalize -> GCN
 (block tails through kernel B) -> error head.
 Compare mode embeds clip and reference, computes the soft-DTW cost and the
 hard-DTW path (kernel C), warps the reference onto the clip's timeline and
@@ -29,6 +32,7 @@ from golfaction_tpu_torch.models.align import AlignEncoder
 from golfaction_tpu_torch.models.error import ErrorClassifier
 from golfaction_tpu_torch.models.gcn import ActionSegmentationGCN, normalize_skeleton
 from golfaction_tpu_torch.models.pose import PoseNet
+from golfaction_tpu_torch.models.refine import KeypointRefiner
 from golfaction_tpu_torch.ops import affine, heatmap, preprocess, softdtw
 from golfaction_tpu_torch.pipeline import video_io
 
@@ -45,8 +49,11 @@ def resolve_device(device) -> torch.device:
 class Pipeline:
     """Holds the four models and runs the analysis program.
 
-    `params`: {"pose", "gcn", "align", "error"} of torch state_dicts (see
-    weights.from_flax); None draws random weights from `seed`.
+    `params`: {"pose", "gcn", "align", "error"[, "refine"]} of torch
+    state_dicts (see weights.from_flax); None draws random weights from
+    `seed`.  The keypoint refiner runs when `params` carries "refine" (with
+    random weights: when `cfg.refine.enabled`; its zero head makes it the
+    identity).
     `error_thresholds`: per-fault decision thresholds [NUM_ERRORS]
     (checkpoint.load_error_thresholds), used when `analyze` gets none.
     """
@@ -55,10 +62,6 @@ class Pipeline:
                  device="cuda", seed: int = 0, error_thresholds=None):
         self.cfg = cfg or get_config()
         c = self.cfg
-        if c.box_refine_stride > 0:
-            raise NotImplementedError("box_refine_stride > 0 is not ported yet")
-        if c.refine.enabled:
-            raise NotImplementedError("the keypoint refiner is not ported yet")
         self.device = resolve_device(device)
         self.pose_model = PoseNet(c.pose)
         self.gcn_model = ActionSegmentationGCN(c.gcn)
@@ -66,6 +69,10 @@ class Pipeline:
         self.error_model = ErrorClassifier(c.error)
         self.models = {"pose": self.pose_model, "gcn": self.gcn_model,
                        "align": self.align_model, "error": self.error_model}
+        self.refine_model = None
+        has_refiner = c.refine.enabled if params is None else "refine" in params
+        if has_refiner:
+            self.refine_model = self.models["refine"] = KeypointRefiner(c.refine)
         if params is None:
             self._init_random(seed)
         else:
@@ -94,33 +101,72 @@ class Pipeline:
         gen = torch.Generator().manual_seed(seed)
         for m in self.models.values():
             weights.init_random(m, gen)
+        if self.refine_model is not None:      # a new refiner is the identity
+            torch.nn.init.zeros_(self.refine_model.head.weight)
 
     # ------------------------------------------------------------------
     # Device programs
     # ------------------------------------------------------------------
-    def _pose_pass(self, frames: torch.Tensor, boxes: torch.Tensor):
+    def _pose_fn(self, frames: torch.Tensor, boxes: torch.Tensor):
+        """The pose stage of a chunk of clips: `_pose_pass`, after the
+        keypoint-seeded box refinement when `box_refine_stride` > 0.
+
+        The refinement runs a coarse pose pass on every `stride`-th frame
+        from FULL-FRAME boxes (the pose net trains with box-scale augmentation
+        up to whole-frame crops, so it owes nothing to the host's box
+        estimate and survives camera motion), takes tight boxes from its
+        keypoints, interpolates them to every frame and smooths them."""
+        s = self.cfg.box_refine_stride
+        N, T, H, W = frames.shape[:4]
+        if s > 0 and T > s:
+            sub = frames[:, ::s].contiguous()
+            full = torch.tensor([W / 2.0, H / 2.0, float(W), float(H)], dtype=torch.float32,
+                                device=frames.device).expand(N, sub.shape[1], 4)
+            coarse, _ = self._pose_pass(sub, full, want_aux=False)
+            rb = affine.boxes_from_keypoints(coarse, (H, W), min_size=0.1 * H)
+            boxes = torch.stack([affine.smooth_boxes(affine.interp_boxes(rb[n], s, T), window=9)
+                                 for n in range(N)])
+        return self._pose_pass(frames, boxes)
+
+    def _pose_pass(self, frames: torch.Tensor, boxes: torch.Tensor, want_aux: bool = True):
         """frames [N, T, H, W, 3] uint8, boxes [N, T, 4] (device) ->
-        keypoints [N, T, V, 3] image px, and the secondary-mode aux
-        [N, T, V, 4] when error.mode_features is on (else None)."""
+        keypoints [N, T, V, 3] image px, and the per-joint heatmap aux
+        [N, T, V, 4] the error head reads (else None): with
+        error.mode_features (dx, dy, rel_mass, sep) of the strongest mode the
+        tracked decode did not select, with error.spread_features (cov_xx,
+        cov_xy, cov_yy, floor) of the heatmap in image px², floor being the
+        training target's (sigma * box scale)²."""
         c = self.cfg
         N, T = frames.shape[:2]
         V = c.pose.num_joints
         track_k = c.pose.decode_tracking
-        want_modes = c.error.mode_features
+        want_modes = want_aux and c.error.mode_features
+        want_spread = want_aux and c.error.spread_features
         if want_modes and track_k < 2:
             raise ValueError("error.mode_features requires pose.decode_tracking >= 2 "
                              "(the secondary mode comes from the tracked-decode NMS)")
-        if c.pose.in_frames != 1:
-            raise NotImplementedError("pose.in_frames > 1 is not ported yet")
+        half = c.pose.in_frames // 2
         boxes = affine.box_to_center_scale(
             boxes, aspect_ratio=c.pose.input_hw[1] / c.pose.input_hw[0])
         flat_f = frames.reshape(N * T, *frames.shape[2:])
         flat_b = boxes.reshape(N * T, 4).contiguous()
         mb = max(1, min(c.frame_batch, N * T))
-        decs = []
+        decs, moms = [], []
         for s in range(0, N * T, mb):
-            crops = preprocess.crop_resize_normalize(
-                flat_f[s:s + mb], flat_b[s:s + mb], c.pose.input_hw)
+            if half == 0:
+                crops = preprocess.crop_resize_normalize(
+                    flat_f[s:s + mb], flat_b[s:s + mb], c.pose.input_hw)
+            else:
+                # Temporal context: each frame's neighbours t-k..t+k (clamped
+                # at its clip's edges), cropped with frame t's box and
+                # concatenated on the channel axis.
+                idx = torch.arange(s, min(s + mb, N * T), device=frames.device)
+                start, t = idx - idx % T, idx % T
+                crops = torch.cat([
+                    preprocess.crop_resize_normalize(
+                        flat_f[start + (t + off).clamp(0, T - 1)], flat_b[s:s + mb],
+                        c.pose.input_hw)
+                    for off in range(-half, half + 1)], dim=-1)
             hm = self.pose_model(crops)                             # [mb, V, Hh, Wh]
             if track_k:
                 decs.append(heatmap.topk_modes(
@@ -128,11 +174,21 @@ class Pipeline:
             else:
                 decs.append(heatmap.decode_heatmaps(hm, method="udp" if c.pose.udp
                                                     else "quarter"))
+            if want_spread:
+                moms.append(heatmap.moment_stats(hm))
         dec = torch.cat(decs, dim=0)
+        spread = None
+        if want_spread:
+            # Covariance heatmap px² -> image px² (the crop is an aspect-matched
+            # pure scale, so one factor per frame).
+            sc = (flat_b[:, 3] / c.pose.heatmap_hw[0])[:, None, None]          # [N*T,1,1]
+            cov = torch.cat(moms, dim=0)[..., 2:5] * sc ** 2
+            floor = ((c.pose.sigma * sc) ** 2).expand(*cov.shape[:2], 1)
+            spread = torch.cat([cov, floor], dim=-1).reshape(N, T, V, 4)
         if not track_k:
             kpts = heatmap.keypoints_to_image(dec, flat_b, c.pose.heatmap_hw,
                                               c.pose.input_hw)
-            return kpts.reshape(N, T, V, 3), None
+            return kpts.reshape(N, T, V, 3), spread
         # Viterbi runs in image space, normalized by the clip-mean crop scale
         # so track_lambda keeps heatmap-px² units at any resolution.
         img = heatmap.keypoints_to_image(dec.reshape(N * T, V * track_k, 3), flat_b,
@@ -144,14 +200,16 @@ class Pipeline:
         tr = heatmap.viterbi_track(norm.transpose(0, 1), lam=c.pose.track_lambda).transpose(0, 1)
         kpts = torch.cat([tr[..., :2] * s, tr[..., 2:]], dim=-1)               # [N,T,V,3]
         if not want_modes:
-            return kpts, None
+            return kpts, spread
         aux = _secondary_modes(img.reshape(N * T, V, track_k, 3), kpts.reshape(N * T, V, 3))
         return kpts, aux.reshape(N, T, V, 4)
 
     def _core_fn(self, frames, boxes, valid) -> dict:
         """Clips [N, T, H, W, 3] -> keypoints, phase logits/labels, error
         logits (and the pose aux block when mode features are on)."""
-        kpts, aux = self._pose_pass(frames, boxes)
+        kpts, aux = self._pose_fn(frames, boxes)
+        if self.refine_model is not None:
+            kpts = self.refine_model(kpts, valid)
         sk = normalize_skeleton(kpts, valid)
         logits = self.gcn_model(sk, valid)
         err = self.error_model(kpts, logits, valid, None, aux)

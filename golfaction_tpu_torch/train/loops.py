@@ -162,9 +162,20 @@ def _pose_boxes(raw_boxes: np.ndarray, pose_cfg: cfg_mod.PoseConfig, device) -> 
     return boxes.contiguous()
 
 
-def _single_frame(pose_cfg: cfg_mod.PoseConfig) -> None:
-    if pose_cfg.in_frames != 1:
-        raise NotImplementedError("pose.in_frames > 1 is not ported yet")
+def _context_crops(frames_np: np.ndarray, idx: np.ndarray, boxes: torch.Tensor,
+                   pose_cfg: cfg_mod.PoseConfig) -> torch.Tensor:
+    """Crops of frames `idx` of one clip, with the temporal context of
+    `pose_cfg.in_frames`: the neighbours t-k..t+k (clamped at the clip's
+    edges) are cropped with frame t's box and concatenated on the channel
+    axis, as the pipeline's pose pass does.  One launch of kernel A per
+    offset on the card."""
+    half = pose_cfg.in_frames // 2
+    groups = []
+    for off in range(-half, half + 1):
+        nidx = np.clip(idx + off, 0, len(frames_np) - 1)
+        frames = torch.from_numpy(np.ascontiguousarray(frames_np[nidx])).to(boxes.device)
+        groups.append(preprocess.crop_resize_normalize(frames, boxes, pose_cfg.input_hw))
+    return groups[0] if len(groups) == 1 else torch.cat(groups, dim=-1)
 
 
 def build_pose_batch(samples, pose_cfg: cfg_mod.PoseConfig, frame_stride: int = 4,
@@ -180,7 +191,6 @@ def build_pose_batch(samples, pose_cfg: cfg_mod.PoseConfig, frame_stride: int = 
     crop of a keypoint-seeded box refinement, which must work from a
     full-frame view before any box is known.
     """
-    _single_frame(pose_cfg)
     device = resolve_device(device)
     jitter_rng = jitter_rng or np.random.default_rng(0)
     crops, targets, wts = [], [], []
@@ -199,8 +209,7 @@ def build_pose_batch(samples, pose_cfg: cfg_mod.PoseConfig, frame_stride: int = 
             ff = jitter_rng.uniform(size=n) < full_frame_prob
             raw_boxes[ff] = [W / 2.0, H / 2.0, float(W), float(H)]
         boxes = _pose_boxes(raw_boxes, pose_cfg, device)
-        frames = torch.from_numpy(np.ascontiguousarray(s.frames[idx])).to(device)
-        crops.append(preprocess.crop_resize_normalize(frames, boxes, pose_cfg.input_hw))
+        crops.append(_context_crops(s.frames, idx, boxes, pose_cfg))
         kpts = torch.from_numpy(s.keypoints[idx]).to(device)
         hm_kpts = heatmap.image_keypoints_to_heatmap(
             kpts, boxes, pose_cfg.heatmap_hw, pose_cfg.input_hw)
@@ -213,10 +222,10 @@ def build_pose_batch(samples, pose_cfg: cfg_mod.PoseConfig, frame_stride: int = 
 
 def pose_eval_crops(frames_np, boxes: torch.Tensor, pose_cfg: cfg_mod.PoseConfig):
     """Inference-convention crops for stage-wise eval: frames [T, H, W, 3]
-    uint8 (numpy) and aspect-matched boxes [T, 4] on the device -> crops."""
-    _single_frame(pose_cfg)
-    frames = torch.from_numpy(np.ascontiguousarray(frames_np)).to(boxes.device)
-    return preprocess.crop_resize_normalize(frames, boxes.contiguous(), pose_cfg.input_hw)
+    uint8 (numpy) and aspect-matched boxes [T, 4] on the device -> crops
+    [T, h, w, 3 * in_frames], the same multi-frame channel concatenation as
+    the pipeline's pose pass."""
+    return _context_crops(frames_np, np.arange(len(frames_np)), boxes.contiguous(), pose_cfg)
 
 
 @torch.no_grad()

@@ -1,11 +1,11 @@
 """Carry the JAX package's parameters over to the port's modules.
 
 `from_flax(params_np)` takes the JAX parameter tree — {"pose", "gcn",
-"align", "error"} of nested dicts of numpy arrays, as a restored npz
-checkpoint or the JAX pipeline's exported params give it, each with or
+"align", "error", "refine"} of nested dicts of numpy arrays, as a restored
+npz checkpoint or the JAX pipeline's exported params give it, each with or
 without its top-level "params" key — and returns {name: state_dict} for
-the port's PoseNet, ActionSegmentationGCN, AlignEncoder and
-ErrorClassifier.  Layouts:
+the port's PoseNet, ActionSegmentationGCN, AlignEncoder, ErrorClassifier
+and KeypointRefiner.  Layouts:
 
   Conv            HWIO -> OIHW
   Dense           IO -> OI
@@ -19,6 +19,11 @@ ErrorClassifier.  Layouts:
 `to_flax(state_dicts)` is the inverse: what the port trained goes back into
 the JAX package's tree ({name: {"params": ...}} of numpy arrays), so that
 `checkpoint.save_params_npz` writes a file the JAX package loads.
+
+`quantized_from_flax(qweights, scales)` and `quantized_to_flax` carry the
+int8 pose path's quantized weights ((w_i8 HWIO, s_w) per convolution, in the
+JAX tree's names) and activation scales into models.pose_quant's form (int8
+matrices [kh*kw*I, O] under the port's module names) and back.
 """
 
 from __future__ import annotations
@@ -172,6 +177,15 @@ def error_state_dict(tree: dict) -> dict:
     return sd
 
 
+def refine_state_dict(tree: dict) -> dict:
+    p = _root(tree)
+    sd: dict = {}
+    for i, blk in enumerate(_seq(p, "GCNBlock")):
+        sd.update({f"blocks.{i}.{k}": v for k, v in gcn_block_state_dict(p[blk]).items()})
+    _dense(sd, "head", p["Dense_0"])
+    return sd
+
+
 def from_flax(params_np: dict) -> dict:
     """{model name: flax tree} -> {model name: torch state_dict}."""
     out = {}
@@ -185,6 +199,8 @@ def from_flax(params_np: dict) -> dict:
         out["align"] = align_state_dict(params_np["align"], hidden)
     if "error" in params_np:
         out["error"] = error_state_dict(params_np["error"])
+    if "refine" in params_np:
+        out["refine"] = refine_state_dict(params_np["refine"])
     return out
 
 
@@ -299,9 +315,88 @@ def error_tree(sd: dict) -> dict:
                        "Dense_2": _dense_out(sd, "fc2")}}
 
 
-_TO_FLAX = {"pose": pose_tree, "gcn": gcn_tree, "align": align_tree, "error": error_tree}
+def refine_tree(sd: dict) -> dict:
+    p = {f"GCNBlock_{i}": gcn_block_tree(_sub(sd, f"blocks.{i}"))
+         for i in range(_count(sd, "blocks"))}
+    p["Dense_0"] = _dense_out(sd, "head")
+    return {"params": p}
+
+
+_TO_FLAX = {"pose": pose_tree, "gcn": gcn_tree, "align": align_tree, "error": error_tree,
+            "refine": refine_tree}
 
 
 def to_flax(state_dicts: dict) -> dict:
     """{model name: torch state_dict} -> {model name: flax tree of numpy}."""
     return {name: _TO_FLAX[name](sd) for name, sd in state_dicts.items()}
+
+
+# ---------------------------------------------------------------------------
+# The int8 pose path's quantized weights and activation scales
+# ---------------------------------------------------------------------------
+
+_QCONV = {"Conv_0": "conv1", "Conv_1": "conv2", "Conv_2": "proj"}
+_QCONV_BACK = {v: k for k, v in _QCONV.items()}
+
+
+def _port_conv_name(flax_name: str) -> str:
+    """'Conv_0' | 'ResBlock_3/Conv_1' | 'ConvTranspose_0' | 'Conv_1' (the
+    final projection) -> the port's module name."""
+    if "/" in flax_name:
+        blk, conv = flax_name.split("/")
+        return f"blocks.{blk.split('_')[1]}.{_QCONV[conv]}"
+    if flax_name.startswith("ConvTranspose_"):
+        return f"deconvs.{flax_name.split('_')[1]}"
+    return {"Conv_0": "stem", "Conv_1": "final"}[flax_name]
+
+
+def _flax_conv_name(port_name: str) -> str:
+    parts = port_name.split(".")
+    if parts[0] == "blocks":
+        return f"ResBlock_{parts[1]}/{_QCONV_BACK[parts[2]]}"
+    if parts[0] == "deconvs":
+        return f"ConvTranspose_{parts[1]}"
+    return {"stem": "Conv_0", "final": "Conv_1"}[port_name]
+
+
+def _kernel_size(port_name: str) -> int:
+    leaf = port_name.split(".")[-1]
+    if port_name.startswith("deconvs."):
+        return 4
+    return {"stem": 7, "conv1": 3, "conv2": 3, "proj": 1}[leaf]
+
+
+def quantized_from_flax(qweights: dict, scales: dict):
+    """The JAX int8 path's (qweights, scales), as numpy, -> the port's:
+    {module name: (int8 matrix [kh*kw*I, O], float32 scales [O])} and
+    {module name: float}."""
+    flat = {}
+    for name, entry in qweights.items():
+        if isinstance(entry, dict):
+            flat.update({f"{name}/{k}": v for k, v in entry.items()})
+        else:
+            flat[name] = entry
+    q = {}
+    for name, (w, s) in flat.items():
+        w = np.array(w)
+        q[_port_conv_name(name)] = (
+            torch.from_numpy(w.reshape(-1, w.shape[-1])),
+            torch.from_numpy(np.array(s, np.float32)))
+    return q, {_port_conv_name(k): float(v) for k, v in scales.items()}
+
+
+def quantized_to_flax(qweights: dict, scales: dict):
+    """The inverse of `quantized_from_flax`: numpy (w_i8 HWIO, s_w) pairs in
+    the JAX tree's nesting, and the scales under its names."""
+    q: dict = {}
+    for name, (w, s) in qweights.items():
+        k = _kernel_size(name)
+        w = w.detach().cpu().numpy()
+        pair = (w.reshape(k, k, w.shape[0] // (k * k), w.shape[1]), _n(s))
+        fname = _flax_conv_name(name)
+        if "/" in fname:
+            blk, conv = fname.split("/")
+            q.setdefault(blk, {})[conv] = pair
+        else:
+            q[fname] = pair
+    return q, {_flax_conv_name(k): float(v) for k, v in scales.items()}

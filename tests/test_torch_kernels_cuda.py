@@ -364,3 +364,141 @@ def test_trainers_on_card_go_through_their_kernels(dev):
     pck = loops.evaluate_pose(state.model, pc, samples)
     c3 = counts()
     assert 0.0 <= pck <= 1.0 and (c3[3] - c2[3], c3[4] - c2[4]) == (2, 2)
+
+
+# ---------------------------------------------------------------------------
+# Kernel F: the int8 GroupNorm + requant epilogue
+# ---------------------------------------------------------------------------
+
+def _requant_inputs(rng, shape, residual, dev):
+    c = shape[-1]
+
+    def vec(lo, hi):
+        return torch.from_numpy(rng.uniform(lo, hi, (c,)).astype(np.float32)).to(dev)
+
+    y = torch.from_numpy(rng.integers(-20000, 20000, shape).astype(np.int32)).to(dev)
+    args = (y, vec(1e-4, 3e-4), vec(0.8, 1.2), vec(-0.2, 0.2))
+    kw = {}
+    if residual == "int8":
+        kw = {"residual": torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8)).to(dev),
+              "res_scale": 0.02}
+    elif residual == "conv":
+        kw = {"residual": torch.from_numpy(
+                  rng.integers(-20000, 20000, shape).astype(np.int32)).to(dev),
+              "res_scale": vec(1e-4, 3e-4), "res_gamma": vec(0.8, 1.2), "res_beta": vec(-0.2, 0.2)}
+    return args, kw
+
+
+@pytest.mark.parametrize("shape,groups", [((2, 8, 16, 32), 8), ((1, 5, 7, 16), 4),
+                                          ((3, 33, 17, 48), 6), ((2, 128, 96, 64), 32),
+                                          ((2, 8, 6, 512), 32), ((1, 3, 3, 1024), 32)])
+@pytest.mark.parametrize("residual", ["none", "int8", "conv"])
+@pytest.mark.parametrize("out_scale", [0.04, None])
+@pytest.mark.parametrize("relu", [True, False])
+def test_requant_kernel_matches_plain(dev, shape, groups, residual, out_scale, relu):
+    from golfaction_tpu_torch.ops import requant
+
+    rng = np.random.default_rng(sum(shape) + groups)
+    args, kw = _requant_inputs(rng, shape, residual, dev)
+    n0 = requant.requant_epilogue.launches
+    got = requant.requant_epilogue(*args, groups, relu=relu, out_scale=out_scale, **kw)
+    want = requant.requant_epilogue_plain(*args, groups, relu=relu, out_scale=out_scale, **kw)
+    torch.cuda.synchronize()
+    assert requant.requant_epilogue.launches == n0 + 1
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if out_scale is None:
+        # Within one bfloat16 ulp: the sums' order moves mean and rstd in
+        # their last bits, which can move a value across a rounding boundary.
+        # 1e-5 beside it: where the terms cancel (or relu cuts at zero) the
+        # float32 noise of terms of size 1 to 4 is larger than the result's ulp.
+        w = want.float()
+        ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp(min=1e-30))) - 7)
+        assert bool(((got.float() - w).abs() <= ulp.clamp(min=1e-5)).all())
+    else:
+        diff = (got.int() - want.int()).abs()
+        assert int(diff.max()) <= 1
+        assert float((diff != 0).float().mean()) < 0.001
+
+
+def test_requant_kernel_refuses_what_it_cannot_take(dev):
+    from golfaction_tpu_torch.ops import requant
+
+    rng = np.random.default_rng(0)
+    args, _ = _requant_inputs(rng, (1, 2, 2, 2048), "none", dev)
+    with pytest.raises(ValueError, match="at most 1024"):
+        requant.requant_epilogue(*args, 32, out_scale=0.05)
+    args, _ = _requant_inputs(rng, (1, 4, 4, 24), "none", dev)
+    with pytest.raises(ValueError, match="multiple"):
+        requant.requant_epilogue(*args, 16, out_scale=0.05)
+    with pytest.raises(ValueError):
+        requant.requant_epilogue(args[0].float(), *args[1:], 8, out_scale=0.05)   # not int32
+    with pytest.raises(ValueError):
+        requant.requant_epilogue(args[0].permute(0, 2, 1, 3), *args[1:], 8, out_scale=0.05)
+    with pytest.raises(ValueError):
+        requant.requant_epilogue(args[0], args[1].cpu(), *args[2:], 8, out_scale=0.05)
+
+
+@pytest.mark.parametrize("k,stride,cin,cout,hw", [(7, 2, 3, 64, (64, 48)), (3, 1, 512, 64, (8, 6)),
+                                                  (1, 2, 64, 128, (16, 12)), (3, 2, 20, 24, (9, 7))])
+def test_integer_convolution_on_card_is_exact(dev, k, stride, cin, cout, hw):
+    from golfaction_tpu_torch.models import pose_quant as pq
+
+    rng = np.random.default_rng(k + cin)
+    x = torch.from_numpy(rng.integers(-127, 128, (2, *hw, cin)).astype(np.int8))
+    w = torch.from_numpy(rng.integers(-127, 128, (k * k * cin, cout)).astype(np.int8))
+    got = pq.conv_i8(x.to(dev), w.to(dev), k, stride)
+    assert torch.equal(got.cpu(), pq.conv_i8(x, w, k, stride))
+    x = x[:, :5, :4]
+    wd = torch.from_numpy(rng.integers(-127, 128, (16 * cin, cout)).astype(np.int8))
+    assert torch.equal(pq.deconv_i8(x.to(dev), wd.to(dev)).cpu(), pq.deconv_i8(x, wd))
+    assert torch.equal(pq.max_pool_i8(x.to(dev)).cpu(), pq.max_pool_i8(x))
+
+
+@pytest.mark.parametrize("M", [1, 17, 24, 40, 48, 72, 96])
+def test_int_mm_takes_any_shape_on_card(dev, M):
+    """cuBLASLt's int8 product refuses M <= 16, K or O off a multiple of 8
+    and, on the H100, M off a multiple of 32 when K < 128 and O >= 32 (M=48,
+    K=32, O=64 is the small model's last projection); `_int_mm` pads."""
+    from golfaction_tpu_torch.models import pose_quant as pq
+
+    rng = np.random.default_rng(M)
+    for K, O in ((8, 32), (32, 64), (72, 128), (96, 48), (147, 64), (20, 17)):
+        a = torch.from_numpy(rng.integers(-127, 128, (M, K)).astype(np.int8))
+        b = torch.from_numpy(rng.integers(-127, 128, (K, O)).astype(np.int8))
+        got = pq._int_mm(a.to(dev), b.to(dev))
+        assert tuple(got.shape) == (M, O)
+        assert torch.equal(got.cpu(), a.int() @ b.int())
+
+
+def test_fused_int8_forward_on_card_runs_kernel_f_at_every_site(dev):
+    from golfaction_tpu_torch import weights
+    from golfaction_tpu_torch.models import pose_quant as pq
+    from golfaction_tpu_torch.models.pose import PoseNet
+    from golfaction_tpu_torch.ops import requant
+
+    cfg = tcfg.PoseConfig(input_hw=(64, 48), heatmap_hw=(16, 12), stage_blocks=(1, 1, 1),
+                          stage_channels=(16, 32, 64), deconv_channels=(32, 32))
+    model = PoseNet(cfg)
+    weights.init_random(model, torch.Generator().manual_seed(0))
+    model.to(dev).eval()
+    gen = torch.Generator().manual_seed(1)
+    calib = torch.randn((8, 64, 48, 3), generator=gen).to(dev)
+    x = torch.randn((4, 64, 48, 3), generator=gen).to(dev)
+    qw, scales = pq.prepare_int8(model, calib)
+    n0 = requant.requant_epilogue.launches
+    got = pq.pose_forward_int8_fused(model, qw, scales, x)
+    assert requant.requant_epilogue.launches - n0 == 1 + 2 * 3 + 2
+    want = pq.pose_forward_int8_fused(model, qw, scales, x,
+                                      epilogue=requant.requant_epilogue_plain)
+    assert requant.requant_epilogue.launches - n0 == 1 + 2 * 3 + 2
+    # Site by site the two epilogues differ by 1 LSB on a few elements in a
+    # million; each such element moves the next convolution's sums, so the
+    # flips multiply along the chain and the heatmaps differ by a few int8
+    # steps of the last activations (measured: 0.012 of the largest value
+    # here, 0.037 at full width).
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 0.08 * scale
+    assert float((got - want).abs().mean()) <= 5e-3 * scale
+    for fn in (pq.pose_forward_int8, pq.pose_forward_int8_mixed):
+        out = fn(model, qw, scales, x)
+        assert bool(torch.isfinite(out).all()) and tuple(out.shape) == (4, 17, 16, 12)

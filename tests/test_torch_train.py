@@ -598,10 +598,12 @@ def test_what_is_not_ported_raises():
         tloops.train_error(tcfg.ErrorConfig(**ERROR), tc, frames_per_clip=8, device="cpu")
     three = tcfg.PoseConfig(**{**POSE, "in_frames": 3})
     s = tdata.make_swing_batch(1, 4, seed=0, image_hw=(64, 96), render=True, render_style="blob")
-    with pytest.raises(NotImplementedError):
-        tloops.build_pose_batch(s, three, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tloops.pose_eval_crops(s[0].frames, torch.zeros(4, 4), three)
+    # Temporal context (in_frames > 1) is ported: nine channels, not a raise.
+    crops, _, _ = tloops.build_pose_batch(s, three, frame_stride=2, device="cpu")
+    assert tuple(crops.shape) == (2, *three.input_hw, 9)
+    boxes = torch.tensor([[48.0, 32.0, 40.0, 50.0]]).repeat(4, 1)
+    assert tuple(tloops.pose_eval_crops(s[0].frames, boxes, three).shape) == (
+        4, *three.input_hw, 9)
 
 
 def test_trainers_ask_for_the_card_by_default():
