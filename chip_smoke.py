@@ -6,7 +6,9 @@ plain PyTorch versions.
 
 Phases (each prints one line; any failure exits non-zero):
   1. device    the card's name and power limit (nvidia-smi)
-  2. build     nvcc of every kernel source, all started together
+  2. build     nvcc of every kernel source, all started together; what
+               ptxas reported for the kernels of A and B (registers, spills)
+               and how many of their blocks one SM holds
   3. parity    each kernel against its plain version at the main path's
                shapes, float32 with TF32 off
   4. main      the shipped model (artifacts/) at full width: analyze,
@@ -16,8 +18,10 @@ Phases (each prints one line; any failure exits non-zero):
                CPU (plain versions) on a small input as the reference
   5. times     kernel, plain and library times (CUDA events around one call;
                `graph_ms` is the kernel alone, 20 calls replayed in a CUDA
-               graph) at the main path's shapes, each kernel's bound, and
-               end-to-end frames/s
+               graph; kernel A's library call is timed both ways too) at the
+               main path's shapes, each kernel's bound, end-to-end frames/s,
+               the stage times and a device profile of one chunk, and the GCN
+               tail's four launches one by one
   6. single    the `full_pipeline` preset as it is (single-peak decode
                through kernel D, random weights from a seed, full width):
                analyze and analyze_batch with a reference; output checks,
@@ -47,9 +51,10 @@ Then a {"kernels": [...]} line and, last, {"ok": true, "device": {...}}.
 
 A kernel's `launches` counts calls of its wrapper, summed over the five
 driven paths (4, 6, 7, 8, 9); each path zeroes the counts just before it runs
-and reads them just after.  The GCN tail's call is three __global__ launches
-(frame tiles, per-clip gates, apply), the requant epilogue's three (stats,
-finalize, apply); the others' is one.
+and reads them just after.  The GCN tail's call is four __global__ launches
+(rows, taps, gates, apply), the requant epilogue's three (stats, finalize,
+apply); the others' is one.  The `launches` line also carries
+`phase_seconds`, the host seconds each phase took.
 """
 
 from __future__ import annotations
@@ -71,6 +76,18 @@ TRAIN_STEPS = 8                # steps each trainer takes
 # epilogue, heatmap gaps over the largest heatmap value: the largest single
 # gap and the mean gap.
 GAP_MAX, GAP_MEAN = 0.08, 5e-3
+# Kernels A and B as they were first ported (A: one thread per output pixel,
+# coordinates made by a dozen torch launches; B: a frame-tile pass with a
+# recomputed halo and a scalar product loop), measured by this script at the
+# same shapes on an NVIDIA H100 80GB HBM3 at 700.00 W: event-pair and
+# in-graph milliseconds.  PERF.md names the runs.
+EARLIER = {"crop_resize_normalize": {"earlier_ms": 0.278, "earlier_graph_ms": 0.0705},
+           "gcn_block_tail": {"earlier_ms": 6.95, "earlier_graph_ms": 6.34}}
+EARLIER_FROM = "the first port of the kernel, NVIDIA H100 80GB HBM3, 700.00 W (PERF.md)"
+# The keys of one entry of the `kernels` line.  The earlier times above go on
+# the `time` lines only: they are not this run's.
+KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+               "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
 class SmokeFailure(RuntimeError):
@@ -224,9 +241,11 @@ def preprocess_bytes_ops(boxes: torch.Tensor, H: int, W: int, oh: int, ow: int):
 
 
 def gcn_tail_bytes_ops(B: int, T: int, V: int, w) -> tuple[float, float]:
-    """x read and out written once, la and the packed weights read once;
-    ops counted per row (the C x C branch product dominates) plus the
-    per-frame and per-joint gate MLPs."""
+    """x read and out written once, la and the packed weights read once
+    (W1 once: the kernel reads its fragment-ordered copy instead of the
+    packed one; the scratch it writes and reads again is not counted);
+    ops counted per row (the C x C branch product, once, not the three
+    passes of its TF32 split) plus the per-frame and per-joint gate MLPs."""
     C, M = w.C, w.M
     rows = B * T * V
     nbytes = 2 * rows * C * 4 + B * 4 + w.packed.numel() * 4
@@ -871,6 +890,31 @@ def breakdown(pipe, clips, boxes, reference) -> None:
         top=[[e.key[:70], dev_us(e) / 1e3, e.count] for e in top])
 
 
+def time_gcn_tail_passes(blocks, tail_x) -> None:
+    """Kernel B pass by pass: device microseconds of each of a call's four
+    launches, at every other block's width, from a torch.profiler trace of
+    three calls.  Run after the host-clock timings of the main path: once a
+    process has profiled, each small launch costs its host about a third
+    more."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from golfaction_tpu_torch.ops import gcn_tail
+
+    la_full = torch.full((BATCH_CLIPS,), CLIP_T, dtype=torch.int32, device=tail_x[0].device)
+    passes = {}
+    for blk, x in list(zip(blocks, tail_x))[::2]:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                gcn_tail.gcn_block_tail(x, la_full, blk.tail)
+            torch.cuda.synchronize()
+        passes[blk.tail.C] = {e.key.split("tail_")[-1].split("_kernel")[0]: dev_us(e) / e.count
+                              for e in device_kernel_rows(prof) if "tail_" in e.key}
+    say("time_gcn_tail_passes", unit="microseconds per launch", B=BATCH_CLIPS, T=CLIP_T,
+        per_width=passes)
+    check(all(sorted(p) == ["apply", "gates", "rows", "taps"] for p in passes.values()),
+          "the trace does not show kernel B's four passes at every width")
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -884,6 +928,15 @@ def main() -> int:
     from golfaction_tpu_torch.types import Skeleton
 
     wall0 = time.perf_counter()
+    phase_seconds, lap0 = {}, [wall0]
+
+    def lap(name: str) -> None:
+        """Host seconds since the last lap, the device drained first."""
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        phase_seconds[name] = round(now - lap0[0], 3)
+        lap0[0] = now
+
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -901,7 +954,15 @@ def main() -> int:
     t0 = time.perf_counter()
     _kernels.build_all()
     say("build", seconds=round(time.perf_counter() - t0, 3), sources=list(_kernels.SOURCES))
+    occ = _kernels.bind("gcn_tail", "gcn_tail_blocks_per_sm", "iiii")
+    say("resources", ptxas={n: _kernels.resource_usage(n) for n in ("preprocess", "gcn_tail")},
+        blocks_per_sm={"crop_resize_normalize": _kernels.bind(
+            "preprocess", "crop_resize_normalize_blocks_per_sm", "")(),
+            "gcn_tail [rows, taps, gates, apply]": {
+                C: [occ(i, C, 17, max(C // 4, 8)) for i in range(4)]
+                for C in (64, 128, 256)}})
 
+    lap("device_build")
     pipe = Pipeline.from_artifacts("artifacts", device="cuda")
     cfg = pipe.cfg
     oh, ow = cfg.pose.input_hw
@@ -913,6 +974,7 @@ def main() -> int:
     say("render", clips=len(clips), frames=CLIP_T, hw=list(VIDEO_HW),
         seconds=round(time.perf_counter() - t0, 3))
 
+    lap("load_render")
     # 3. parity -------------------------------------------------------------
     from golfaction_tpu_torch.ops import affine
 
@@ -1009,6 +1071,7 @@ def main() -> int:
     say("parity_softdtw_bwd", gamma=cfg.align.gamma, results=bwd_errs, rtol=1e-4,
         atol="1e-6 of the largest E", autograd="equal to E")
 
+    lap("parity")
     # 4. main path ----------------------------------------------------------
     counters = {"preprocess": preprocess.crop_resize_normalize,
                 "gcn_tail": gcn_tail.gcn_block_tail, "softdtw": softdtw.wavefront,
@@ -1026,7 +1089,7 @@ def main() -> int:
     main_s = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
     say("main", config="full_pipeline+artifacts", seconds=round(main_s, 3), launches=launches,
-        global_launches_per_call={"preprocess": 1, "gcn_tail": 3, "softdtw": 1},
+        global_launches_per_call={"preprocess": 1, "gcn_tail": 4, "softdtw": 1},
         decode_tracking=cfg.pose.decode_tracking, mode_features=cfg.error.mode_features)
     for k in ("preprocess", "gcn_tail", "softdtw"):      # the tracked decode has no kernel
         check(launches[k] > 0, f"kernel {k} was not launched on the main path")
@@ -1037,6 +1100,7 @@ def main() -> int:
         error_probs=[round(float(v), 6) for v in res_cmp.error_probs],
         cost=float(res_cmp.alignment.cost), path_length=int(res_cmp.alignment.path_length))
 
+    lap("main")
     # The same program on the CPU (plain versions) on a small input.
     cpu = Pipeline.from_artifacts("artifacts", device="cpu")
     small = [c[:20] for c in clips[2:4]]
@@ -1059,6 +1123,7 @@ def main() -> int:
           and diffs["error_probs"] <= 1e-4 and diffs["cost_rel"] <= 1e-4,
           "card and CPU disagree on the small input")
 
+    lap("reference_cpu")
     # 5. times --------------------------------------------------------------
     entries = []
     nb, ops = preprocess_bytes_ops(boxes_a, H, W, oh, ow)
@@ -1071,8 +1136,11 @@ def main() -> int:
     gy = preprocess._sample_coords(boxes_a, oh, axis=1) / (H - 1) * 2 - 1     # [B, oh]
     grid = torch.stack([gx[:, None, :].expand(-1, oh, -1),
                         gy[:, :, None].expand(-1, -1, ow)], dim=-1).contiguous()
-    lib = cuda_ms(lambda: F.grid_sample(src, grid, mode="bilinear", padding_mode="zeros",
-                                        align_corners=True))
+    def library():
+        return F.grid_sample(src, grid, mode="bilinear", padding_mode="zeros",
+                             align_corners=True)
+
+    lib, lib_graph = cuda_ms(library), graph_ms(library)
     del src
     bms, by = bound(nb, ops)
     entries.append(dict(name="crop_resize_normalize", route="cuda",
@@ -1080,8 +1148,10 @@ def main() -> int:
                         replaces="golfaction_tpu/ops/pallas/preprocess_kernel.py:127",
                         launches=launches["preprocess"], max_abs_err=err["preprocess"],
                         ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
-                        graph_ms=gms, shape=[fb, H, W, 3], bytes=nb, ops=ops))
+                        graph_ms=gms, library_graph_ms=lib_graph, shape=[fb, H, W, 3], bytes=nb,
+                        ops=ops, **EARLIER["crop_resize_normalize"], earlier_from=EARLIER_FROM))
 
+    lap("times_preprocess")
     ms = gms = plain = nb = ops = 0.0
     for blk, x in zip(pipe.gcn_model.blocks, tail_x):
         la_full = torch.full((BATCH_CLIPS,), CLIP_T, dtype=torch.int32, device=dev)
@@ -1098,8 +1168,10 @@ def main() -> int:
                         ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
                         graph_ms=gms,
                         shape="six blocks, x [4, 64, 17, C], C in (64,64,128,128,256,256)",
-                        bytes=nb, ops=ops))
+                        bytes=nb, ops=ops, **EARLIER["gcn_block_tail"],
+                        earlier_from=EARLIER_FROM))
 
+    lap("times_gcn_tail")
     e = torch.nn.functional.normalize(torch.randn((BATCH_CLIPS, 2 * CLIP_T, 128),
                                                   generator=gen), dim=-1)
     D = softdtw.pairwise_sqdist(e[:, :CLIP_T], e[:, CLIP_T:]).to(dev).contiguous()
@@ -1157,8 +1229,11 @@ def main() -> int:
                         bytes=nb, ops=ops))
     for en in entries:
         say("time", **{k: en[k] for k in ("name", "ms", "graph_ms", "plain_ms", "bound_ms",
-                                          "bound_by", "library_ms", "shape")})
+                                          "bound_by", "library_ms", "library_graph_ms",
+                                          "earlier_ms", "earlier_graph_ms", "earlier_from",
+                                          "shape") if k in en})
 
+    lap("times_softdtw_decode")
     pipe.analyze_batch(clips[2:], boxes=boxes[2:], reference=reference)     # warm
     walls = []
     for _ in range(3):
@@ -1171,14 +1246,20 @@ def main() -> int:
     say("e2e", call="analyze_batch", clips=BATCH_CLIPS, frames=BATCH_CLIPS * CLIP_T,
         hw=list(VIDEO_HW), reference=True, wall_s=walls, frames_per_s=BATCH_CLIPS * CLIP_T / wall,
         smoke_seconds=round(time.perf_counter() - wall0, 3))
+    lap("e2e")
     breakdown(pipe, clips[2:], boxes[2:], reference)
+    time_gcn_tail_passes(pipe.gcn_model.blocks, tail_x)
+    lap("breakdown_passes")
 
     # 6-9. the single-peak pipeline, the trainers, the int8 path, the options ----
     del pipe, cpu
     torch.cuda.empty_cache()
-    paths = {"main": launches, "single_peak": single_peak_phase(clips, boxes, counters),
-             "train": train_phase(counters)}
+    paths = {"main": launches, "single_peak": single_peak_phase(clips, boxes, counters)}
+    lap("single_peak")
+    paths["train"] = train_phase(counters)
+    lap("train")
     paths["int8_path"], requant_entry = int8_phase(counters, err)
+    lap("int8_path")
     entries.append(requant_entry)
     say("time", **{k: requant_entry[k] for k in ("name", "ms", "graph_ms", "plain_ms",
                                                  "bound_ms", "bound_by", "library_ms", "shape")})
@@ -1188,11 +1269,13 @@ def main() -> int:
     for en, k in zip(entries, names):
         en["launches"] = sum(p[k] for p in paths.values())
         check(en["launches"] > 0, f"kernel {k} was launched on no driven path")
-    say("launches", by_path=paths, smoke_seconds=round(time.perf_counter() - wall0, 3))
+    lap("options")
+    say("launches", by_path=paths, phase_seconds=phase_seconds,
+        smoke_seconds=round(time.perf_counter() - wall0, 3))
 
-    print(json.dumps({"kernels": [{k: v for k, v in en.items()
-                                   if k not in ("shape", "bytes", "ops", "graph_ms")}
-                                  for en in entries]}), flush=True)
+    # Only what this run counted, measured or (bound_ms) computed from its inputs.
+    print(json.dumps({"kernels": [{k: en[k] for k in KERNEL_KEYS} for en in entries]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -4,83 +4,172 @@
 // (crop_resize_normalize_pallas).  That kernel computes the separable warp
 // Wy @ frame @ Wx^T as two dense matrix products.  Each row of the
 // hat-kernel matrices has at most two non-zeros, so the same function is a
-// 4-tap bilinear gather with zero border: this kernel does the gather, one
-// thread per output pixel, all three channels, in float32.
+// 4-tap bilinear gather with zero border: this kernel does the gather in
+// float32, in one launch with nothing before it.
 //
-// The sample coordinates (one row per box along x and along y) come in from
-// the wrapper, computed by the same torch expression as the plain versions,
-// so kernel and plain versions sample the same points: at 1080p one ulp of a
-// coordinate (1.2e-4 px) times a 255-level pixel step is already 5e-4 after
-// normalization.
+// The kernel computes its own sample coordinates from the boxes:
+//   step = s / (n - 1),  start = c - s / 2,  coord(i) = start + i * step
+// with every operation rounded on its own (__fdiv_rn, __fmul_rn, __fadd_rn:
+// no reciprocal, no contraction into an FMA), exactly as the plain versions
+// compute them (ops/preprocess.py:_sample_coords, ops/affine.py:crop_transform,
+// which divide by a tensor so that the card divides too).  That matters: at
+// 1080p one ulp of a coordinate (1.2e-4 px) times a 255-level pixel step is
+// already 5e-4 after normalization.
 //
 // Bound: bytes.  Each output pixel reads 4 x 3 source bytes and writes 12
-// bytes of float32; the arithmetic is a few dozen FLOPs per pixel.  Threads
-// of a warp cover neighbouring output pixels, so their source taps fall on
-// neighbouring (or the same) source pixels and the reads coalesce through L1.
+// bytes of float32.  Two things kept earlier versions of this kernel from
+// the bound, and the design answers both:
+//   * instructions.  A version that computed the whole coordinate arithmetic
+//     and three IEEE divisions per output float spent longer executing
+//     instructions than moving bytes.  Here a thread owns one output column in four
+//     neighbouring rows: the column's x terms are computed once per thread,
+//     a row's y terms once per pixel, and a pixel is then four tap offsets
+//     (clamped into the frame), four weights (zero for a tap outside the
+//     frame, so no load is ever out of bounds) and, per channel, 4 one-byte
+//     loads through the read-only path, 4 multiply-adds and one more for the
+//     normalization, folded on the host into v * 1/(255 std) - mean/std.  A
+//     byte becomes a float by an OR into 2^23's mantissa and a subtraction:
+//     integer-to-float conversions run at an eighth of the rate;
+//   * lines per load.  The lanes of a warp take 32 neighbouring columns, so
+//     one load instruction touches about 32 x 3.8 x 3 = 365 source bytes at
+//     the main path's downscale: 3 or 4 cache lines.  With four neighbouring
+//     pixels to a thread it was 12 lines, and L1 takes one line a cycle.
+// The 4 x 384 bytes a warp produces go through shared memory, so that each
+// row's 384 contiguous bytes leave as 16-byte stores of neighbouring lanes.
+// Source rows are not staged in shared memory: at the main path's 3.8x
+// downscale a source byte is used at most once per output row.  An output
+// width that is not a multiple of 4 takes scalar stores.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-__device__ __forceinline__ float tap(const uint8_t* __restrict__ f, int x, int y,
-                                     int H, int W, int c) {
-  if (x < 0 || x >= W || y < 0 || y >= H) return 0.0f;
-  return (float)f[((size_t)y * W + x) * 3 + c];
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRows = 4;   // output rows per thread: a warp's tile is 32 columns x 4 rows
+
+struct Norm {
+  float scale[3], shift[3];   // out = v * scale + shift
+};
+
+// Source coordinate of output index i along an axis of n samples over a box
+// of center c and size s.
+__device__ __forceinline__ float sample_coord(float c, float s, int n, int i) {
+  const float step = __fdiv_rn(s, (float)(n - 1));
+  const float start = __fsub_rn(c, __fmul_rn(s, 0.5f));
+  return __fadd_rn(start, __fmul_rn((float)i, step));
 }
 
-__global__ void crop_resize_normalize_kernel(
-    const uint8_t* __restrict__ frames,  // [B, H, W, 3]
-    const float* __restrict__ xs,        // [B, ow] source x of each output column
-    const float* __restrict__ ys,        // [B, oh] source y of each output row
-    float* __restrict__ out,             // [B, oh, ow, 3]
-    int H, int W, int oh, int ow,
-    float m0, float m1, float m2, float s0, float s1, float s2) {
-  const int b = blockIdx.y;
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= oh * ow) return;
-  const int oy = p / ow;
-  const int ox = p - oy * ow;
+// One axis of a bilinear tap pair: the two source indices clamped into
+// [0, size) for addressing, whether each lies in the frame, and the fraction.
+struct Axis {
+  int i0, i1;
+  bool ok0, ok1;
+  float frac;
+};
 
-  const float sx = xs[(size_t)b * ow + ox];
-  const float sy = ys[(size_t)b * oh + oy];
-  const float x0f = floorf(sx);
-  const float y0f = floorf(sy);
-  const float fx = sx - x0f;
-  const float fy = sy - y0f;
+__device__ __forceinline__ Axis make_axis(float s, int size) {
+  const float f = floorf(s);
   // Clamp before the int conversion: a far-off box must not overflow it.
-  const int x0 = (int)fmaxf(fminf(x0f, (float)W), -2.0f);
-  const int y0 = (int)fmaxf(fminf(y0f, (float)H), -2.0f);
-  const float w00 = (1.0f - fx) * (1.0f - fy);
-  const float w10 = fx * (1.0f - fy);
-  const float w01 = (1.0f - fx) * fy;
-  const float w11 = fx * fy;
+  const int i = (int)fmaxf(fminf(f, (float)size), -2.0f);
+  Axis a;
+  a.frac = s - f;
+  a.ok0 = i >= 0 && i < size;
+  a.ok1 = i + 1 >= 0 && i + 1 < size;
+  a.i0 = a.ok0 ? i : 0;
+  a.i1 = a.ok1 ? i + 1 : 0;
+  return a;
+}
 
-  const uint8_t* f = frames + (size_t)b * H * W * 3;
-  float* o = out + ((size_t)b * oh * ow + p) * 3;
-  const float mean[3] = {m0, m1, m2};
-  const float stdv[3] = {s0, s1, s2};
+__device__ __forceinline__ float byte_to_float(uint8_t b) {
+  return __uint_as_float(0x4B000000u | b) - 8388608.0f;   // 2^23 + b, exactly
+}
+
+// The three floats of one output pixel.
+__device__ __forceinline__ void sample_pixel(const uint8_t* __restrict__ f, int W, const Axis& y,
+                                             const Axis& x, const Norm& nm, float* out3) {
+  const int off[4] = {(y.i0 * W + x.i0) * 3, (y.i0 * W + x.i1) * 3, (y.i1 * W + x.i0) * 3,
+                      (y.i1 * W + x.i1) * 3};
+  const float fx = x.frac, fy = y.frac;
+  const float w[4] = {y.ok0 && x.ok0 ? (1.0f - fx) * (1.0f - fy) : 0.0f,
+                      y.ok0 && x.ok1 ? fx * (1.0f - fy) : 0.0f,
+                      y.ok1 && x.ok0 ? (1.0f - fx) * fy : 0.0f,
+                      y.ok1 && x.ok1 ? fx * fy : 0.0f};
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    float v = tap(f, x0, y0, H, W, c) * w00;
-    v += tap(f, x0 + 1, y0, H, W, c) * w10;
-    v += tap(f, x0, y0 + 1, H, W, c) * w01;
-    v += tap(f, x0 + 1, y0 + 1, H, W, c) * w11;
-    o[c] = (v / 255.0f - mean[c]) / stdv[c];
+  for (int ch = 0; ch < 3; ++ch) {
+    float v = byte_to_float(__ldg(f + off[0] + ch)) * w[0];
+    v += byte_to_float(__ldg(f + off[1] + ch)) * w[1];
+    v += byte_to_float(__ldg(f + off[2] + ch)) * w[2];
+    v += byte_to_float(__ldg(f + off[3] + ch)) * w[3];
+    out3[ch] = v * nm.scale[ch] + nm.shift[ch];
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) crop_resize_normalize_kernel(
+    const uint8_t* __restrict__ frames,  // [B, H, W, 3]
+    const float* __restrict__ boxes,     // [B, 4] cx, cy, w, h
+    float* __restrict__ out,             // [B, oh, ow, 3]
+    int H, int W, int oh, int ow, Norm nm) {
+  __shared__ __align__(16) float stage[kWarps][kRows][96];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int b = blockIdx.y;
+  const int ncg = (ow + 31) / 32;                  // column groups of a row
+  const int tile = blockIdx.x * kWarps + warp;     // the warp's tile in the image
+  if (tile >= ncg * ((oh + kRows - 1) / kRows)) return;   // the whole warp leaves
+  const int rg = tile / ncg, cg = tile - rg * ncg;
+  const int ox = cg * 32 + lane, oy0 = rg * kRows;
+  const float cx = __ldg(boxes + 4 * b), cy = __ldg(boxes + 4 * b + 1);
+  const float bw = __ldg(boxes + 4 * b + 2), bh = __ldg(boxes + 4 * b + 3);
+  const uint8_t* f = frames + (size_t)b * H * W * 3;
+
+  if (ox < ow) {
+    const Axis x = make_axis(sample_coord(cx, bw, ow, ox), W);
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+      if (oy0 + k < oh)
+        sample_pixel(f, W, make_axis(sample_coord(cy, bh, oh, oy0 + k), H), x, nm,
+                     &stage[warp][k][3 * lane]);
+    }
+  }
+  __syncwarp();
+  const int nfl = 3 * min(32, ow - cg * 32);       // floats of the tile's rows
+#pragma unroll
+  for (int k = 0; k < kRows; ++k) {
+    if (oy0 + k >= oh) break;
+    float* o = out + (((size_t)b * oh + oy0 + k) * ow + cg * 32) * 3;
+    if (ow % 4 == 0) {   // rows and tiles start on 16-byte boundaries
+      if (4 * lane < nfl)
+        reinterpret_cast<float4*>(o)[lane] = reinterpret_cast<const float4*>(stage[warp][k])[lane];
+    } else {
+      for (int i = lane; i < nfl; i += 32) o[i] = stage[warp][k][i];
+    }
   }
 }
 
 }  // namespace
 
+extern "C" int crop_resize_normalize_blocks_per_sm() {
+  int n = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, crop_resize_normalize_kernel, kThreads, 0);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
 extern "C" int crop_resize_normalize_launch(
-    const void* frames, const void* xs, const void* ys, void* out,
+    const void* frames, const void* boxes, void* out,
     int B, int H, int W, int oh, int ow,
     float m0, float m1, float m2, float s0, float s1, float s2,
     void* stream) {
-  const int threads = 256;
-  dim3 grid((oh * ow + threads - 1) / threads, B);
-  crop_resize_normalize_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)frames, (const float*)xs, (const float*)ys, (float*)out,
-      H, W, oh, ow, m0, m1, m2, s0, s1, s2);
+  const double mean[3] = {m0, m1, m2}, stdv[3] = {s0, s1, s2};
+  Norm nm;
+  for (int c = 0; c < 3; ++c) {   // (v / 255 - mean) / std as one multiply-add
+    nm.scale[c] = (float)(1.0 / (255.0 * stdv[c]));
+    nm.shift[c] = (float)(-mean[c] / stdv[c]);
+  }
+  const int tiles = ((ow + 31) / 32) * ((oh + kRows - 1) / kRows);   // one warp each
+  dim3 grid((tiles + kWarps - 1) / kWarps, B);
+  crop_resize_normalize_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)frames, (const float*)boxes, (float*)out, H, W, oh, ow, nm);
   return (int)cudaGetLastError();
 }

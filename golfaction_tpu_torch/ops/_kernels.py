@@ -3,7 +3,9 @@
 Each source is compiled by `nvcc` for sm_90a into a shared library with a
 plain C interface under `golfaction_tpu_torch/build/`, at first use, and
 loaded with ctypes.  The library name carries a hash of its source, so an
-edited kernel is rebuilt and a stale build is never loaded.  Every C entry
+edited kernel is rebuilt and a stale build is never loaded.  The compiler's
+output (`-Xptxas -v`: registers, shared memory and spills of every kernel) is
+kept beside the library; `resource_usage` reads it.  Every C entry
 point returns `cudaGetLastError()` after its launches; `check` raises on it.
 
 Nothing here runs at import time: this module is imported on machines with
@@ -15,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -26,7 +29,7 @@ BUILD = PKG / "build"
 SOURCES = ("preprocess", "gcn_tail", "softdtw", "decode", "softdtw_bwd", "requant")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[tuple[str, str], ctypes._CFuncPtr] = {}
@@ -64,6 +67,7 @@ def _finish_build(job) -> None:
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {out.name}:\n{log.decode(errors='replace')}")
+    out.with_suffix(".log").write_bytes(log)
     os.replace(tmp, out)
 
 
@@ -73,6 +77,27 @@ def build_all(names=SOURCES) -> None:
     jobs = [j for j in (_start_build(n) for n in names) if j is not None]
     for job in jobs:
         _finish_build(job)
+
+
+def resource_usage(name: str) -> list[dict]:
+    """What ptxas reported for each kernel of csrc/<name>.cu when it was
+    built: name (with its integer template argument), registers, static
+    shared memory, spill bytes."""
+    build_all((name,))
+    log = _lib_path(name).with_suffix(".log").read_text(errors="replace")
+    rows = []
+    for entry, body in re.findall(r"Compiling entry function '(\w+)'(.*?)(?=Compiling entry|\Z)",
+                                  log, flags=re.S):
+        regs = re.search(r"Used (\d+) registers", body)
+        smem = re.search(r"(\d+) bytes smem", body)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", body)
+        short = re.search(r"\d+([a-z_]+_kernel)(?:ILi(\d+)E)?", entry)
+        if short:
+            entry = short.group(1) + (f"<{short.group(2)}>" if short.group(2) else "")
+        rows.append({"kernel": entry, "registers": int(regs.group(1)) if regs else None,
+                     "static_smem": int(smem.group(1)) if smem else 0,
+                     "spill_bytes": int(spill.group(1)) + int(spill.group(2)) if spill else None})
+    return rows
 
 
 def load(name: str) -> ctypes.CDLL:

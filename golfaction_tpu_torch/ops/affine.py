@@ -20,6 +20,13 @@ def box_to_center_scale(boxes: torch.Tensor, aspect_ratio: float,
     return torch.stack([cx, cy, w * padding, h * padding], dim=-1)
 
 
+def scalar_like(v: float, like: torch.Tensor) -> torch.Tensor:
+    """A Python number as a 0-dim tensor of `like`'s type on its device.  A
+    divisor that is a tensor is divided by on every device; a host scalar is
+    multiplied with as its reciprocal on CUDA, which rounds differently."""
+    return torch.full((), float(v), dtype=like.dtype, device=like.device)
+
+
 def crop_transform(boxes: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     """2x3 affine mapping output crop pixel coords -> source image coords.
 
@@ -27,8 +34,8 @@ def crop_transform(boxes: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor
     """
     H, W = out_hw
     cx, cy, w, h = boxes.unbind(-1)
-    sx = w / (W - 1)
-    sy = h / (H - 1)
+    sx = w / scalar_like(W - 1, boxes)
+    sy = h / scalar_like(H - 1, boxes)
     tx = cx - w / 2.0
     ty = cy - h / 2.0
     zeros = torch.zeros_like(sx)

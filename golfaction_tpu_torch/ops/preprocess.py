@@ -28,10 +28,15 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 
 def _sample_coords(boxes: torch.Tensor, out_size: int, axis: int) -> torch.Tensor:
     """Source coordinates [..., out_size] of output pixel centers along x
-    (axis=0: cx, w) or y (axis=1: cy, h)."""
+    (axis=0: cx, w) or y (axis=1: cy, h).
+
+    The step divides by a tensor on the boxes' device, not by a host scalar
+    (which PyTorch on CUDA multiplies with as its reciprocal), so the CPU,
+    the card and the kernel (csrc/preprocess.cu:sample_coord, which repeats
+    these operations one by one) round the same way."""
     c = boxes[..., 0 + axis]
     s = boxes[..., 2 + axis]
-    step = s / (out_size - 1)
+    step = s / affine.scalar_like(out_size - 1, boxes)
     start = c - s / 2.0
     idx = torch.arange(out_size, dtype=torch.float32, device=boxes.device)
     return start[..., None] + idx * step[..., None]
@@ -113,11 +118,10 @@ def crop_resize_normalize(frames: torch.Tensor, boxes: torch.Tensor,
     out = torch.empty((B, oh, ow, 3), dtype=torch.float32, device=frames.device)
     if B == 0:
         return out
-    # The plain versions' own sample coordinates, so both sample the same points.
-    xs = _sample_coords(boxes, ow, axis=0).contiguous()          # [B, ow]
-    ys = _sample_coords(boxes, oh, axis=1).contiguous()          # [B, oh]
-    fn = _kernels.bind("preprocess", "crop_resize_normalize_launch", "ppppiiiiiffffffp")
-    rc = fn(_kernels.ptr(frames), _kernels.ptr(xs), _kernels.ptr(ys), _kernels.ptr(out),
+    # One launch and nothing else on the device: the kernel computes the
+    # plain versions' sample coordinates itself, operation by operation.
+    fn = _kernels.bind("preprocess", "crop_resize_normalize_launch", "pppiiiiiffffffp")
+    rc = fn(_kernels.ptr(frames), _kernels.ptr(boxes), _kernels.ptr(out),
             B, H, W, oh, ow, *[float(m) for m in mean], *[float(s) for s in std],
             _kernels.stream_of(frames))
     _kernels.check(rc, "crop_resize_normalize kernel")

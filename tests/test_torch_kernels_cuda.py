@@ -42,7 +42,11 @@ def _frames_boxes(rng, b, h, w):
     return frames, boxes
 
 
-@pytest.mark.parametrize("b,h,w,oh,ow", [(3, 120, 160, 64, 48), (8, 1080, 1920, 256, 192)])
+# The main path's shape, B = 1, and output widths off a multiple of 4 (the
+# kernel's scalar-store path).
+@pytest.mark.parametrize("b,h,w,oh,ow", [(3, 120, 160, 64, 48), (8, 1080, 1920, 256, 192),
+                                         (1, 1080, 1920, 256, 192), (2, 90, 130, 33, 31),
+                                         (1, 64, 64, 17, 5), (5, 200, 300, 40, 36)])
 def test_preprocess_kernel_matches_plain(dev, b, h, w, oh, ow):
     frames, boxes = _frames_boxes(np.random.default_rng(b), b, h, w)
     f = torch.from_numpy(frames).to(dev)
@@ -53,6 +57,36 @@ def test_preprocess_kernel_matches_plain(dev, b, h, w, oh, ow):
     torch.cuda.synchronize()
     assert preprocess.crop_resize_normalize.launches == n0 + 1
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-4)
+    again = preprocess.crop_resize_normalize(f, bx, (oh, ow))
+    assert torch.equal(got, again)                        # two runs, the same bits
+
+
+@pytest.mark.parametrize("kind", ["upscaled", "outside", "far", "one_px"])
+@pytest.mark.parametrize("oh,ow", [(64, 48), (33, 31)])
+def test_preprocess_kernel_takes_odd_boxes(dev, kind, oh, ow):
+    """A small box blown up to the output size, boxes that lie wholly outside
+    the frame (normalized zero), boxes too far off for an int, 1 px boxes."""
+    rng = np.random.default_rng(7)
+    h, w, b = 120, 160, 4
+    frames = torch.from_numpy(rng.integers(0, 256, (b, h, w, 3), dtype=np.uint8)).to(dev)
+    boxes = {"upscaled": [[80.3, 60.7, 9.0, 12.0], [10.0, 10.0, 4.0, 4.0], [150.0, 110.0, 6.5, 3.2],
+                          [80.0, 60.0, 2.0, 2.0]],
+             "outside": [[-300.0, 60.0, 50.0, 50.0], [500.0, 500.0, 30.0, 40.0],
+                         [80.0, -200.0, 60.0, 90.0], [80.0, 400.0, 10.0, 10.0]],
+             "far": [[5e6, -3e7, 20.0, 30.0], [-1e9, 1e9, 1e3, 1e3], [3e9, 3e9, 1.0, 1.0],
+                     [1e12, 0.0, 5.0, 5.0]],
+             "one_px": [[80.0, 60.0, 1.0, 1.0], [0.0, 0.0, 1.0, 1.0], [159.0, 119.0, 1.0, 1.0],
+                        [80.5, 60.5, 1.0, 0.5]]}[kind]
+    bx = torch.tensor(boxes, dtype=torch.float32, device=dev)
+    got = preprocess.crop_resize_normalize(frames, bx, (oh, ow))
+    want = preprocess.crop_resize_normalize_reference(frames, bx, (oh, ow))
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-4)
+    if kind in ("outside", "far"):
+        zero = -np.asarray(preprocess.IMAGENET_MEAN, np.float32) / np.asarray(
+            preprocess.IMAGENET_STD, np.float32)
+        np.testing.assert_allclose(got.cpu().numpy(), np.broadcast_to(zero, got.shape), atol=1e-6)
 
 
 def _random_block(C, cin, seed):
@@ -64,18 +98,54 @@ def _random_block(C, cin, seed):
     return blk
 
 
-@pytest.mark.parametrize("C,T", [(16, 16), (64, 64), (128, 64), (256, 64), (64, 37)])
-def test_gcn_tail_kernel_matches_plain(dev, C, T):
+def _ragged_lengths(B, T):
+    """Valid lengths for B clips: full, empty, one frame, and in between."""
+    return ([T, 0, 1, T - 5, T // 2, T, 3, T - 1] * 2)[:B] if T > 5 else ([T, 0, 1] * 3)[:B]
+
+
+@pytest.mark.parametrize("C", [16, 64, 128, 256])
+@pytest.mark.parametrize("T", [16, 37, 64, 128, 512])
+@pytest.mark.parametrize("B", [1, 4, 8])
+def test_gcn_tail_kernel_matches_plain(dev, C, T, B):
     tail = _random_block(C, C, C + T).pack().to(dev)
     gen = torch.Generator().manual_seed(T)
-    x = torch.randn((3, T, 17, C), generator=gen).to(dev)
-    la = torch.tensor([T, T - 5, 1], dtype=torch.int32, device=dev)
+    x = torch.randn((B, T, 17, C), generator=gen).to(dev)
+    la = torch.tensor(_ragged_lengths(B, T), dtype=torch.int32, device=dev)
     n0 = gcn_tail.gcn_block_tail.launches
     got = gcn_tail.gcn_block_tail(x, la, tail)
     want = gcn_tail.gcn_block_tail_plain(x, la, tail)
     torch.cuda.synchronize()
     assert gcn_tail.gcn_block_tail.launches == n0 + 1
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-3, rtol=1e-4)
+    masked = torch.arange(T, device=dev)[None, :] >= la[:, None]
+    assert not bool(got[masked].any())                    # padded frames stay zero
+    again = gcn_tail.gcn_block_tail(x, la, tail)
+    assert torch.equal(got, again)                        # two runs, the same bits
+
+
+@pytest.mark.parametrize("C,T,B", [(8, 5, 1), (24, 20, 2), (25, 9, 2), (100, 33, 2), (72, 3, 3)])
+def test_gcn_tail_kernel_takes_widths_off_the_mma_tile(dev, C, T, B):
+    """C off a multiple of 8 or 16 (zero padding in the packed fragments), off
+    a multiple of 4 (scalar loads and stores), clips shorter than the taps reach."""
+    tail = _random_block(C, C, C).pack().to(dev)
+    x = torch.randn((B, T, 17, C), generator=torch.Generator().manual_seed(C)).to(dev)
+    la = torch.tensor(_ragged_lengths(B, T), dtype=torch.int32, device=dev)
+    got = gcn_tail.gcn_block_tail(x, la, tail)
+    want = gcn_tail.gcn_block_tail_plain(x, la, tail)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-3, rtol=1e-4)
+
+
+def test_gcn_tail_kernel_on_the_shipped_weights(dev):
+    """All six widths of the shipped GCN, ragged lengths, the kernel's limit."""
+    pipe = Pipeline.from_artifacts(str(ROOT / "artifacts"), device="cuda")
+    gen = torch.Generator().manual_seed(0)
+    la = torch.tensor([64, 55, 23, 0], dtype=torch.int32, device=dev)
+    for blk in pipe.gcn_model.blocks:
+        x = torch.randn((4, 64, 17, blk.tail.C), generator=gen).to(dev)
+        got = gcn_tail.gcn_block_tail(x, la, blk.tail)
+        want = gcn_tail.gcn_block_tail_plain(x, la, blk.tail)
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-3)
 
 
 @pytest.mark.parametrize("B,Ta,Tb", [(3, 7, 11), (8, 64, 64), (8, 128, 64), (2, 600, 20)])
@@ -149,8 +219,13 @@ def test_softdtw_backward_kernel_matches_plain(dev, B, Ta, Tb):
 
 def test_tail_weight_layout_agrees_with_the_kernel(dev):
     total = _kernels.bind("gcn_tail", "gcn_tail_layout_total", "ii")
-    for C, M in ((16, 8), (64, 16), (256, 64)):
+    smem = _kernels.bind("gcn_tail", "gcn_tail_smem", "iiii")
+    for C, M in ((16, 8), (64, 16), (256, 64), (25, 8), (100, 25)):
         assert total(C, M) == gcn_tail.tail_layout(C, M)["_total"][0]
+        # The shared memory each pass asks for, as the wrapper computes it.
+        assert smem(0, C, 17, M) == gcn_tail.rows_smem(C)
+        assert smem(1, C, 17, M) == gcn_tail.taps_smem(C, 17)
+        assert smem(2, C, 17, M) == gcn_tail.gates_smem(C, M)
 
 
 def test_kernels_refuse_bad_inputs(dev):
