@@ -7,8 +7,10 @@ plain PyTorch versions.
 Phases (each prints one line; any failure exits non-zero):
   1. device    the card's name and power limit (nvidia-smi)
   2. build     nvcc of every kernel source, all started together; what
-               ptxas reported for the kernels of A and B (registers, spills)
-               and how many of their blocks one SM holds
+               ptxas reported for the kernels of A, B, C and F (registers,
+               spills) and how many of their blocks one SM holds at the main
+               path's shapes; F's cluster size at each distinct site shape and
+               how many such clusters the card holds at once
   3. parity    each kernel against its plain version at the main path's
                shapes, float32 with TF32 off
   4. main      the shipped model (artifacts/) at full width: analyze,
@@ -19,7 +21,9 @@ Phases (each prints one line; any failure exits non-zero):
   5. times     kernel, plain and library times (CUDA events around one call;
                `graph_ms` is the kernel alone, 20 calls replayed in a CUDA
                graph; kernel A's library call is timed both ways too) at the
-               main path's shapes, each kernel's bound, end-to-end frames/s,
+               main path's shapes, each kernel's bound (kernel C also with
+               its register ring instead of its staged table, and its
+               nanoseconds per anti-diagonal), end-to-end frames/s,
                the stage times and a device profile of one chunk, and the GCN
                tail's four launches one by one
   6. single    the `full_pipeline` preset as it is (single-peak decode
@@ -40,7 +44,9 @@ Phases (each prints one line; any failure exits non-zero):
                then calibrate on 16 rendered crops and evaluate float, int8,
                fused-int8 and mixed forwards on 64 others (decode through
                kernel D): PCK@0.05 and milliseconds of each, the fused forward
-               with kernel F against the fused forward with the plain epilogue
+               with kernel F against the fused forward with the plain epilogue;
+               kernel F's time at each site shape, under the launch layout its
+               policy chose and under the others it weighs
   9. options  the shipped model with box_refine_stride=8 on one 64-frame 1080p
                clip (finite keypoints, refined boxes inside the frame, one
                more launch of kernel A for the coarse pass), and a
@@ -52,9 +58,8 @@ Then a {"kernels": [...]} line and, last, {"ok": true, "device": {...}}.
 A kernel's `launches` counts calls of its wrapper, summed over the five
 driven paths (4, 6, 7, 8, 9); each path zeroes the counts just before it runs
 and reads them just after.  The GCN tail's call is four __global__ launches
-(rows, taps, gates, apply), the requant epilogue's three (stats, finalize,
-apply); the others' is one.  The `launches` line also carries
-`phase_seconds`, the host seconds each phase took.
+(rows, taps, gates, apply); the others' is one.  The `launches` line also
+carries `phase_seconds`, the host seconds each phase took.
 """
 
 from __future__ import annotations
@@ -76,14 +81,21 @@ TRAIN_STEPS = 8                # steps each trainer takes
 # epilogue, heatmap gaps over the largest heatmap value: the largest single
 # gap and the mean gap.
 GAP_MAX, GAP_MEAN = 0.08, 5e-3
-# Kernels A and B as they were first ported (A: one thread per output pixel,
+# Kernels as they were first ported (A: one thread per output pixel,
 # coordinates made by a dozen torch launches; B: a frame-tile pass with a
-# recomputed halo and a scalar product loop), measured by this script at the
-# same shapes on an NVIDIA H100 80GB HBM3 at 700.00 W: event-pair and
-# in-graph milliseconds.  PERF.md names the runs.
+# recomputed halo and a scalar product loop; C: one block per table, one
+# thread per row, a block barrier and a load of D per diagonal; F: three
+# launches over chunks of rows, every element read twice), measured by this
+# script at the same shapes on an NVIDIA H100 80GB HBM3 at 700.00 W:
+# event-pair and in-graph milliseconds.  PERF.md names the runs.
 EARLIER = {"crop_resize_normalize": {"earlier_ms": 0.278, "earlier_graph_ms": 0.0705},
-           "gcn_block_tail": {"earlier_ms": 6.95, "earlier_graph_ms": 6.34}}
+           "gcn_block_tail": {"earlier_ms": 6.95, "earlier_graph_ms": 6.34},
+           "softdtw_wavefront": {"earlier_ms": 0.188, "earlier_graph_ms": 0.137},
+           "requant_epilogue": {"earlier_ms": 2.08, "earlier_graph_ms": 0.875}}
 EARLIER_FROM = "the first port of the kernel, NVIDIA H100 80GB HBM3, 700.00 W (PERF.md)"
+TIME_KEYS = ("name", "ms", "graph_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+             "library_graph_ms", "ns_per_diagonal", "ring_graph_ms", "earlier_ms",
+             "earlier_graph_ms", "earlier_from", "shape")
 # The keys of one entry of the `kernels` line.  The earlier times above go on
 # the `time` lines only: they are not this run's.
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
@@ -643,9 +655,12 @@ def int8_phase(counters, err: dict) -> tuple[dict, dict]:
     err["requant"] = float(max(s_.get("max_diff_lsb", 0) for s_ in sites))
 
     # Kernel F's times: each distinct site shape, weighted by how many sites
-    # of a forward have it.
+    # of a forward have it; beside each, the kernel alone under the other
+    # layouts the launch policy weighs (one wave of blocks; the smallest
+    # cluster that stages), so that the choice is measured in every run.
     tot = {"ms": 0.0, "graph_ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "ops": 0.0}
     per_shape = []
+    max_cluster, sms, l2 = requant.card_limits(dev)
     with torch.inference_mode():
         for (R, C, res, out_t), k in kept.items():
             a, kw = k["args"], k["kw"]
@@ -654,9 +669,22 @@ def int8_phase(counters, err: dict) -> tuple[dict, dict]:
             plain = cuda_ms(lambda: requant.requant_epilogue_plain(*a, **kw), reps=3, warmup=1)
             nb, ops = requant_bytes_ops(a[0].numel(), C, k["mode"], 1 if out_t == "int8" else 2)
             bms, by = bound(nb, ops)
+            shape = dict(N=a[0].shape[0], R=R, C=C, groups=a[4], res_mode=k["mode"],
+                         out_int8=out_t == "int8", max_cluster=max_cluster, sms=sms)
+            chosen = requant.launch_geometry(**shape, l2_bytes=l2)
+            wave = requant.launch_geometry(**shape, l2_bytes=float("inf"))
+            staging = next((c for c in (1, 2, 4, 8, 16) if c <= max_cluster
+                            and requant.launch_geometry(**shape, cluster=c).staged), None)
+            layouts = {}
+            out = torch.empty_like(requant.requant_epilogue(*a, **kw))
+            for c in sorted({wave.cluster, staging or wave.cluster} - {chosen.cluster}):
+                geo = requant.launch_geometry(**shape, cluster=c)
+                layouts[f"cluster {c}, {'staged' if geo.staged else 're-read'}"] = graph_ms(
+                    lambda: requant.launch(out, geo, *a, **kw), calls=10, reps=5)
             per_shape.append({"R": R, "C": C, "residual": res, "out": out_t, "sites": k["count"],
+                              "cluster": chosen.cluster, "staged": chosen.staged,
                               "ms": ms, "graph_ms": gms, "plain_ms": plain, "bound_ms": bms,
-                              "bound_by": by})
+                              "bound_by": by, "other_layouts_graph_ms": layouts})
             for key, v in (("ms", ms), ("graph_ms", gms), ("plain_ms", plain), ("bytes", nb),
                            ("ops", ops)):
                 tot[key] += v * k["count"]
@@ -676,7 +704,8 @@ def int8_phase(counters, err: dict) -> tuple[dict, dict]:
                  shape="the 20 sites of one fused forward at batch 64 (max_abs_err in int8 "
                        "LSB; library_ms is F.group_norm alone on the dequantized float32 "
                        "stem tensor [64, 64, 128, 96], the middle of one site)",
-                 bytes=tot["bytes"], ops=tot["ops"])
+                 bytes=tot["bytes"], ops=tot["ops"], **EARLIER["requant_epilogue"],
+                 earlier_from=EARLIER_FROM)
     say("time_requant_sites", per_shape=per_shape)
 
     # int8_path: the evaluation a user runs, through the entry point.
@@ -730,8 +759,7 @@ def int8_phase(counters, err: dict) -> tuple[dict, dict]:
     say("int8_profile", region="one fused int8 forward, 64 crops",
         device_busy_ms=busy_ms if rows else "not measured",
         device_idle_share=(1 - busy_ms / result["ms_int8_fused"]) if rows else "not measured",
-        kernel_f_ms=sum(dev_us(e) for e in rows if "requant" in e.key or "stats_kernel" in e.key
-                        or "apply_kernel" in e.key or "finalize_kernel" in e.key) / 1e3,
+        kernel_f_ms=sum(dev_us(e) for e in rows if "requant_kernel" in e.key) / 1e3,
         top=[[e.key[:70], dev_us(e) / 1e3, e.count] for e in top])
     plain_outs.clear()
     largest = float(hm_p.abs().max())
@@ -915,6 +943,53 @@ def time_gcn_tail_passes(blocks, tail_x) -> None:
           "the trace does not show kernel B's four passes at every width")
 
 
+# The distinct epilogue sites of one fused int8 forward at batch 64:
+# (R, C, residual mode (0 none, 1 int8, 2 int32 with its own GroupNorm), int8 out).
+REQUANT_SITES = ((12288, 64, 0, True), (3072, 64, 0, True), (3072, 64, 1, True),
+                 (768, 128, 0, True), (768, 128, 2, True), (768, 128, 1, True),
+                 (192, 256, 0, True), (192, 256, 2, True), (192, 256, 1, True),
+                 (48, 512, 0, True), (48, 512, 2, True), (48, 512, 1, True),
+                 (3072, 128, 0, False))
+
+
+def requant_occupancy(requant) -> dict:
+    """Kernel F's launch at each distinct site shape of the fused forward at
+    batch 64: cluster, rows a block, staged or not, shared memory, blocks per
+    SM and clusters the card holds at once (cudaOccupancyMaxActiveClusters)."""
+    from golfaction_tpu_torch.ops import _kernels
+
+    dev = torch.device("cuda")
+    max_cluster, sms, l2 = requant.card_limits(dev)
+    clusters = _kernels.bind("requant", "requant_max_active_clusters", "iiiii")
+    per_sm = _kernels.bind("requant", "requant_blocks_per_sm", "iiii")
+    sites = []
+    for R, C, mode, i8 in REQUANT_SITES:
+        g = requant.launch_geometry(64, R, C, min(32, C), mode, i8, max_cluster=max_cluster,
+                                    sms=sms, l2_bytes=l2)
+        sites.append({"R": R, "C": C, "residual": ("none", "int8", "conv")[mode],
+                      "cluster": g.cluster, "rows_a_block": g.rpb, "staged": g.staged,
+                      "smem": g.smem, "threads": g.threads, "bytes_a_thread": 4 * g.wa,
+                      "blocks_per_sm": per_sm(g.wa, int(i8), g.threads, g.smem),
+                      "max_active_clusters": clusters(g.wa, int(i8), g.cluster, g.threads,
+                                                      g.smem)})
+    return {"largest_cluster": max_cluster, "sms": sms, "l2_bytes": l2, "sites": sites}
+
+
+def wavefront_occupancy(softdtw) -> dict:
+    """Kernel C's launch at [4, 64, 64] (compare) and [96, 48, 48] (one
+    train_align step): rows a lane, warps a table, tables a block, staged,
+    blocks per SM (soft and hard)."""
+    from golfaction_tpu_torch.ops import _kernels
+
+    fn = _kernels.bind("softdtw", "softdtw_wavefront_blocks_per_sm", "iiiiiii")
+    out = {}
+    for B, Ta, Tb in ((BATCH_CLIPS, CLIP_T, CLIP_T), (96, 48, 48)):
+        g = softdtw.wavefront_geometry(B, Ta, Tb)
+        out[f"{B}x{Ta}x{Tb}"] = {**g._asdict(), "blocks_per_sm": [
+            fn(Ta, Tb, g.rows, g.warps, g.tables, int(g.staged), soft) for soft in (1, 0)]}
+    return out
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -955,13 +1030,15 @@ def main() -> int:
     _kernels.build_all()
     say("build", seconds=round(time.perf_counter() - t0, 3), sources=list(_kernels.SOURCES))
     occ = _kernels.bind("gcn_tail", "gcn_tail_blocks_per_sm", "iiii")
-    say("resources", ptxas={n: _kernels.resource_usage(n) for n in ("preprocess", "gcn_tail")},
+    say("resources", ptxas={n: _kernels.resource_usage(n)
+                            for n in ("preprocess", "gcn_tail", "softdtw", "requant")},
         blocks_per_sm={"crop_resize_normalize": _kernels.bind(
             "preprocess", "crop_resize_normalize_blocks_per_sm", "")(),
             "gcn_tail [rows, taps, gates, apply]": {
                 C: [occ(i, C, 17, max(C // 4, 8)) for i in range(4)]
-                for C in (64, 128, 256)}})
-
+                for C in (64, 128, 256)},
+            "softdtw_wavefront": wavefront_occupancy(softdtw)},
+        requant=requant_occupancy(requant))
     lap("device_build")
     pipe = Pipeline.from_artifacts("artifacts", device="cuda")
     cfg = pipe.cfg
@@ -1177,7 +1254,13 @@ def main() -> int:
     D = softdtw.pairwise_sqdist(e[:, :CLIP_T], e[:, CLIP_T:]).to(dev).contiguous()
     gam = cfg.align.gamma
     ms = sum(cuda_ms(lambda g=g: softdtw.wavefront(D, g)) for g in (gam, 0.0))
-    gms = sum(graph_ms(lambda g=g: softdtw.wavefront(D, g)) for g in (gam, 0.0))
+    per_call = {g: graph_ms(lambda g=g: softdtw.wavefront(D, g)) for g in (gam, 0.0)}
+    gms = sum(per_call.values())
+    # The same calls with D prefetched from device memory into a register
+    # ring and R written cell by cell, instead of both staged in shared memory.
+    ring = softdtw.wavefront_geometry(BATCH_CLIPS, CLIP_T, CLIP_T)._replace(staged=False)
+    ring_ms = {f"gamma {g}": graph_ms(lambda g=g: softdtw.launch_wavefront(D, g, ring))
+               for g in (gam, 0.0)}
     plain = sum(cuda_ms(lambda g=g: softdtw.wavefront_plain(D, g), reps=5) for g in (gam, 0.0))
     nb = ops = 0.0
     for g in (gam, 0.0):
@@ -1189,8 +1272,11 @@ def main() -> int:
                         replaces="golfaction_tpu/ops/pallas/softdtw_kernel.py:218",
                         launches=launches["softdtw"], max_abs_err=err["softdtw"],
                         ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
-                        graph_ms=gms, shape="D [4, 64, 64], gamma 0.1 then 0", bytes=nb,
-                        ops=ops))
+                        graph_ms=gms, ns_per_diagonal={
+                            f"gamma {g}": t / (2 * CLIP_T - 1) * 1e6 for g, t in per_call.items()},
+                        ring_graph_ms=ring_ms,
+                        shape="D [4, 64, 64], gamma 0.1 then 0", bytes=nb, ops=ops,
+                        **EARLIER["softdtw_wavefront"], earlier_from=EARLIER_FROM))
 
     M, HW = hm_a.shape[0] * hm_a.shape[1], hh * hw_
     nb, ops = decode_bytes_ops(M, HW)
@@ -1228,10 +1314,7 @@ def main() -> int:
                               f"in a graph",
                         bytes=nb, ops=ops))
     for en in entries:
-        say("time", **{k: en[k] for k in ("name", "ms", "graph_ms", "plain_ms", "bound_ms",
-                                          "bound_by", "library_ms", "library_graph_ms",
-                                          "earlier_ms", "earlier_graph_ms", "earlier_from",
-                                          "shape") if k in en})
+        say("time", **{k: en[k] for k in TIME_KEYS if k in en})
 
     lap("times_softdtw_decode")
     pipe.analyze_batch(clips[2:], boxes=boxes[2:], reference=reference)     # warm
@@ -1261,8 +1344,7 @@ def main() -> int:
     paths["int8_path"], requant_entry = int8_phase(counters, err)
     lap("int8_path")
     entries.append(requant_entry)
-    say("time", **{k: requant_entry[k] for k in ("name", "ms", "graph_ms", "plain_ms",
-                                                 "bound_ms", "bound_by", "library_ms", "shape")})
+    say("time", **{k: requant_entry[k] for k in TIME_KEYS if k in requant_entry})
     torch.cuda.empty_cache()
     paths["options"] = options_phase(clips, boxes, counters)
     names = ("preprocess", "gcn_tail", "softdtw", "decode", "softdtw_bwd", "requant")

@@ -3,7 +3,8 @@ backward, the E-recursion as a reverse wavefront (kernel E).
 
   * `wavefront` — the DP table of a batch of cost matrices, soft-min
     (gamma > 0) or hard min (gamma == 0).  On a CUDA tensor it launches the
-    hand-written kernel (csrc/softdtw.cu), which replaces the TPU kernel
+    hand-written kernel (csrc/softdtw.cu: one warp per table, rows in
+    registers, cut by `wavefront_geometry`), which replaces the TPU kernel
     golfaction_tpu/ops/pallas/softdtw_kernel.py (_wavefront_batch_jit); on a
     CPU tensor it runs `wavefront_plain`, the same anti-diagonal recursion.
   * `softdtw_backward` — E = d cost / d D of a batch of tables, which is
@@ -21,6 +22,8 @@ backward, the E-recursion as a reverse wavefront (kernel E).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -146,20 +149,73 @@ def wavefront_plain(D: torch.Tensor, gamma: float) -> torch.Tensor:
     return table[:, ii + jj, ii]
 
 
+MAX_SMEM = 232448            # 227 KB, the most shared memory a block may ask for
+MAX_ROWS = 8                 # rows a lane holds: Ta <= 256 in one warp
+TABLES_PER_BLOCK = 4         # the most tables a block takes, when B outnumbers the SMs
+H100_SMS = 132
+
+
+class WavefrontGeometry(NamedTuple):
+    """Kernel C's launch: each lane holds `rows` consecutive rows, a table
+    takes `warps` warps (more than one only for Ta > 32 * MAX_ROWS) and a
+    block `tables` tables; `staged`: D (then R) in shared memory, `smem`
+    bytes a block."""
+    rows: int
+    warps: int
+    tables: int
+    staged: bool
+    smem: int
+
+
+def _wavefront_smem(Ta: int, Tb: int, warps: int, tables: int, staged: bool) -> int:
+    """Shared memory as csrc/softdtw.cu lays it out: one slot of Ta*Tb floats
+    (rounded up to 4) per table when staged, then the boundary hand-over
+    [2, warps]."""
+    slot = -(-Ta * Tb // 4) * 4
+    return 4 * ((tables * slot if staged else 0) + 2 * warps)
+
+
+def wavefront_geometry(B: int, Ta: int, Tb: int, sms: int = H100_SMS) -> WavefrontGeometry:
+    """One warp per table, the fewest rows a lane that hold Ta; several tables
+    a block only when B outnumbers the SMs; D staged where the block's tables
+    fit in shared memory (else the register ring)."""
+    rows = 1
+    while rows < MAX_ROWS and 32 * rows < Ta:
+        rows *= 2
+    warps = -(-Ta // (32 * rows))
+    tables = 1 if warps > 1 else max(1, min(TABLES_PER_BLOCK, B // sms))
+    while tables > 1 and _wavefront_smem(Ta, Tb, warps, tables, True) > MAX_SMEM:
+        tables //= 2
+    staged = _wavefront_smem(Ta, Tb, warps, tables, True) <= MAX_SMEM
+    return WavefrontGeometry(rows, warps, tables, staged,
+                             _wavefront_smem(Ta, Tb, warps, tables, staged))
+
+
 def wavefront(D: torch.Tensor, gamma: float) -> torch.Tensor:
     """DP table R [B, Ta, Tb] of cost matrices D [B, Ta, Tb] (kernel C)."""
     if D.device.type == "cpu":
         return wavefront_plain(D, gamma)
     _kernels.require(D, torch.float32, 3, "softdtw wavefront D")
     B, Ta, Tb = D.shape
-    R = torch.empty_like(D)
     if B == 0:
-        return R
-    fn = _kernels.bind("softdtw", "softdtw_wavefront_launch", "ppiiifp")
-    rc = fn(_kernels.ptr(D), _kernels.ptr(R), B, Ta, Tb, float(gamma),
-            _kernels.stream_of(D))
-    _kernels.check(rc, "softdtw wavefront kernel")
+        return torch.empty_like(D)
+    idx = D.device.index if D.device.index is not None else torch.cuda.current_device()
+    geo = wavefront_geometry(B, Ta, Tb, torch.cuda.get_device_properties(idx).multi_processor_count)
+    R = launch_wavefront(D, gamma, geo)
     wavefront.launches += 1
+    return R
+
+
+def launch_wavefront(D: torch.Tensor, gamma: float, geo: WavefrontGeometry) -> torch.Tensor:
+    """Kernel C on a checked CUDA D [B, Ta, Tb] under launch `geo` (the
+    wrapper's, or another one to measure); counts no launch."""
+    B, Ta, Tb = D.shape
+    R = torch.empty_like(D)
+    vec = (Ta * Tb) % 4 == 0 and D.data_ptr() % 16 == 0 and R.data_ptr() % 16 == 0
+    fn = _kernels.bind("softdtw", "softdtw_wavefront_launch", "ppiiifiiiiip")
+    rc = fn(_kernels.ptr(D), _kernels.ptr(R), B, Ta, Tb, float(gamma), geo.rows, geo.warps,
+            geo.tables, int(geo.staged), int(vec), _kernels.stream_of(D))
+    _kernels.check(rc, "softdtw wavefront kernel")
     return R
 
 

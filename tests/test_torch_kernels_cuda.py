@@ -9,6 +9,7 @@ float32 throughout, with TF32 off for matmuls and convolutions, so the
 tolerances only absorb reduction order.
 """
 
+import ctypes
 from pathlib import Path
 
 import numpy as np
@@ -148,7 +149,11 @@ def test_gcn_tail_kernel_on_the_shipped_weights(dev):
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-3)
 
 
-@pytest.mark.parametrize("B,Ta,Tb", [(3, 7, 11), (8, 64, 64), (8, 128, 64), (2, 600, 20)])
+# (96, 48, 48): one train_align step; (4, 512, 512): two warps a table and the
+# register ring (the table does not fit in shared memory); (301, 20, 24):
+# several tables a block, the last block short; (2, 600, 20): three warps.
+@pytest.mark.parametrize("B,Ta,Tb", [(3, 7, 11), (8, 64, 64), (8, 128, 64), (2, 600, 20),
+                                     (96, 48, 48), (4, 512, 512), (301, 20, 24)])
 @pytest.mark.parametrize("gamma", [0.1, 0.0])
 def test_wavefront_kernel_matches_plain(dev, B, Ta, Tb, gamma):
     rng = np.random.default_rng(Ta * Tb)
@@ -215,6 +220,66 @@ def test_softdtw_backward_kernel_matches_plain(dev, B, Ta, Tb):
     (g,) = torch.autograd.grad(softdtw.softdtw_cost(Dg[:, :, :], 0.1).sum(), Dg)
     assert softdtw.softdtw_backward.launches == n0 + 2
     np.testing.assert_array_equal(g.cpu().numpy(), got.cpu().numpy())
+
+
+@pytest.mark.parametrize("gamma", [0.1, 0.0])
+def test_wavefront_staged_and_ring_paths_agree(dev, gamma):
+    rng = np.random.default_rng(7)
+    for B, Ta, Tb in ((4, 64, 64), (2, 600, 20), (3, 33, 70)):
+        D = torch.from_numpy(rng.uniform(0, 4, (B, Ta, Tb)).astype(np.float32)).to(dev)
+        g = softdtw.wavefront_geometry(B, Ta, Tb)
+        assert g.staged
+        ring = softdtw.launch_wavefront(D, gamma, g._replace(staged=False, smem=0))
+        assert torch.equal(softdtw.wavefront(D, gamma), ring)
+        # A view 4 bytes off a 16-byte boundary takes the scalar copies.
+        flat = torch.empty(D.numel() + 1, device=dev)
+        off = flat[1:].view(B, Ta, Tb)
+        off.copy_(D)
+        assert torch.equal(softdtw.wavefront(off, gamma), ring)
+
+
+def test_quick_division_is_ieee_division_for_every_float(dev):
+    """Kernel C divides by gamma with a reciprocal and one FMA correction
+    where the dividend is 0 or within [2^-60, 2^60]; over every float32 bit
+    pattern, at the shipped gamma, at the ends of the range gamma may take and
+    at random gammas, the quotient is the IEEE quotient."""
+    check = _kernels.bind("softdtw", "softdtw_division_check", "iifpp")
+    rng = np.random.default_rng(11)
+    gammas = [0.1, 0.05, 1.0, 1.0 / 3.0, 7.7, 2.0 ** -40, 2.0 ** 40, 0.0999999940395]
+    gammas += list(np.exp(rng.uniform(-6, 4, 8)))
+    bad = torch.zeros(1, dtype=torch.int64, device=dev)
+    for gamma in gammas:
+        for first in (0, 1 << 31):                       # positive, then negative x
+            assert check(first, (1 << 31) - 1, float(np.float32(gamma)), _kernels.ptr(bad),
+                         _kernels.stream_of(bad)) == 0
+    torch.cuda.synchronize()
+    assert int(bad) == 0
+    assert check(0, 16, 1e20, _kernels.ptr(bad), _kernels.stream_of(bad)) == 1   # out of range
+
+
+def test_kernel_geometry_agrees_with_python(dev):
+    from golfaction_tpu_torch.ops import requant
+
+    layout = _kernels.bind("requant", "requant_layout", "iiiiiip")
+    buf = (ctypes.c_int * 3)()
+    for N, R, C, G in ((64, 12288, 64, 32), (64, 3072, 128, 32), (64, 48, 512, 32),
+                       (1, 49152, 64, 32), (2, 35, 12, 4), (3, 9, 1024, 32), (2, 40, 6, 3),
+                       (2, 7, 1023, 1)):
+        for mode in (0, 1, 2):
+            for out_int8 in (True, False):
+                for max_cluster in (16, 8):
+                    g = requant.launch_geometry(N, R, C, G, mode, out_int8, max_cluster=max_cluster)
+                    assert layout(C, G, mode, g.wa, g.rpb, int(g.staged),
+                                  ctypes.cast(buf, ctypes.c_void_p)) == 0
+                    assert (buf[0], buf[1], buf[2]) == (g.threads, g.rpi, g.smem)
+    max_cluster, sms, l2 = requant.card_limits(dev)
+    props = torch.cuda.get_device_properties(dev)
+    assert max_cluster in (8, 16)
+    assert (sms, l2) == (props.multi_processor_count, props.L2_cache_size)
+    smem = _kernels.bind("softdtw", "softdtw_wavefront_smem", "iiiii")
+    for B, Ta, Tb in ((4, 64, 64), (96, 48, 48), (2, 600, 20), (4, 512, 512), (600, 30, 31)):
+        g = softdtw.wavefront_geometry(B, Ta, Tb)
+        assert smem(Ta, Tb, g.warps, g.tables, int(g.staged)) == g.smem
 
 
 def test_tail_weight_layout_agrees_with_the_kernel(dev):
@@ -464,9 +529,14 @@ def _requant_inputs(rng, shape, residual, dev):
     return args, kw
 
 
+# (1, 256, 192, 64): a slab too large for 16 blocks' shared memory, the
+# re-read branch; C = 12 and 24: 4-byte int8 stores (and 8-byte bf16 at 12);
+# C = 6: the scalar path.
 @pytest.mark.parametrize("shape,groups", [((2, 8, 16, 32), 8), ((1, 5, 7, 16), 4),
                                           ((3, 33, 17, 48), 6), ((2, 128, 96, 64), 32),
-                                          ((2, 8, 6, 512), 32), ((1, 3, 3, 1024), 32)])
+                                          ((2, 8, 6, 512), 32), ((1, 3, 3, 1024), 32),
+                                          ((1, 256, 192, 64), 32), ((2, 5, 9, 12), 4),
+                                          ((2, 11, 3, 24), 8), ((2, 7, 5, 6), 3)])
 @pytest.mark.parametrize("residual", ["none", "int8", "conv"])
 @pytest.mark.parametrize("out_scale", [0.04, None])
 @pytest.mark.parametrize("relu", [True, False])
@@ -493,6 +563,22 @@ def test_requant_kernel_matches_plain(dev, shape, groups, residual, out_scale, r
         diff = (got.int() - want.int()).abs()
         assert int(diff.max()) <= 1
         assert float((diff != 0).float().mean()) < 0.001
+
+
+def test_requant_kernel_takes_rows_off_a_16_byte_boundary(dev):
+    from golfaction_tpu_torch.ops import requant
+
+    rng = np.random.default_rng(5)
+    args, kw = _requant_inputs(rng, (2, 16, 12, 64), "conv", dev)
+    flat = torch.empty(args[0].numel() + 1, dtype=torch.int32, device=dev)
+    y = flat[1:].view(args[0].shape)
+    y.copy_(args[0])
+    n0 = requant.requant_epilogue.launches
+    got = requant.requant_epilogue(y, *args[1:], 32, out_scale=0.04, **kw)   # 4-byte accesses
+    want = requant.requant_epilogue_plain(*args, 32, out_scale=0.04, **kw)
+    assert requant.requant_epilogue.launches == n0 + 1
+    diff = (got.int() - want.int()).abs()
+    assert int(diff.max()) <= 1 and float((diff != 0).float().mean()) < 0.001
 
 
 def test_requant_kernel_refuses_what_it_cannot_take(dev):

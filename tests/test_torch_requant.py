@@ -7,6 +7,8 @@ value on a rounding boundary falls either way with the sums' order; the JAX
 suite allows its kernel the same against its oracle).  bfloat16 outputs:
 within one bfloat16 ulp."""
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,6 +16,7 @@ import torch
 
 from golfaction_tpu.ops.pallas import requant_kernel as rk
 from golfaction_tpu_torch.ops import requant
+from tests.test_torch_requant_geometry import assert_geometry_covers
 
 CASES = [
     # residual, relu, out_scale, (n, h, w, c), groups
@@ -112,10 +115,12 @@ def test_group_norm_rows_matches_torch_group_norm():
 @pytest.mark.parametrize("R,C", [(12288, 64), (3072, 64), (768, 128), (192, 256), (48, 512),
                                  (35, 16), (7, 48), (1, 1024)])
 def test_launch_geometry_covers_every_row(R, C):
-    threads, rows, chunks = requant.launch_geometry(R, C)
-    assert threads % C == 0 and threads <= 1024
-    assert rows % (threads // C) == 0
-    assert (chunks - 1) * rows < R <= chunks * rows
+    # Every residual mode and output type, at batch 1 and 64; the checks are
+    # those of the 20 sites in tests/test_torch_requant_geometry.py.
+    for N in (1, 64):
+        for res_mode in (0, 1, 2):
+            for out_int8 in (True, False):
+                assert_geometry_covers(N, R, C, math.gcd(C, 32), res_mode, out_int8)
 
 
 def test_residual_of_another_type_is_refused():
