@@ -6,24 +6,30 @@ plain PyTorch versions.
 
 Phases (each prints one line; any failure exits non-zero):
   1. device    the card's name and power limit (nvidia-smi)
-  2. build     nvcc of every kernel source, all started together; what
-               ptxas reported for the kernels of A, B, C and F (registers,
+  2. build     nvcc of every kernel source and g++ of the motion-box
+               library (native/golfer_host.cpp), all started together; what
+               ptxas reported for the kernels of A, B, C, E and F (registers,
                spills) and how many of their blocks one SM holds at the main
-               path's shapes; F's cluster size at each distinct site shape and
-               how many such clusters the card holds at once
+               path's and the trainer's shapes; F's cluster size at each
+               distinct site shape and how many such clusters the card holds
+               at once
   3. parity    each kernel against its plain version at the main path's
                shapes, float32 with TF32 off
-  4. main      the shipped model (artifacts/) at full width: analyze,
-               compare-mode analyze and analyze_batch of 4 clips with a
-               reference, on 64-frame 1080p clips rendered from a seed;
-               output checks, launch counts, and the same program on the
+  4. main      the shipped model (artifacts/) at full width: analyze (its
+               boxes from the C++ motion-box library, checked against the
+               numpy body), compare-mode analyze and analyze_batch of 4 clips
+               with a reference, on 64-frame 1080p clips rendered from a seed;
+               output checks, launch counts, compare mode twice (the
+               alignment stage on the same keypoints, and whole runs with
+               deterministic cuDNN, to the bit), and the same program on the
                CPU (plain versions) on a small input as the reference
   5. times     kernel, plain and library times (CUDA events around one call;
                `graph_ms` is the kernel alone, 20 calls replayed in a CUDA
                graph; kernel A's library call is timed both ways too) at the
                main path's shapes, each kernel's bound (kernel C also with
-               its register ring instead of its staged table, and its
-               nanoseconds per anti-diagonal), end-to-end frames/s,
+               its register ring instead of its staged table; C and E their
+               nanoseconds per anti-diagonal, E also through its two-launch
+               layout), end-to-end frames/s,
                the stage times and a device profile of one chunk, and the GCN
                tail's four launches one by one
   6. single    the `full_pipeline` preset as it is (single-peak decode
@@ -55,6 +61,11 @@ Phases (each prints one line; any failure exits non-zero):
                heatmaps
 Then a {"kernels": [...]} line and, last, {"ok": true, "device": {...}}.
 
+    python3 chip_smoke.py --options-repeats N
+
+runs only the options phase, N times on the same clips (a record of whether
+`options_cpu` ever fails).
+
 A kernel's `launches` counts calls of its wrapper, summed over the five
 driven paths (4, 6, 7, 8, 9); each path zeroes the counts just before it runs
 and reads them just after.  The GCN tail's call is four __global__ launches
@@ -83,18 +94,21 @@ TRAIN_STEPS = 8                # steps each trainer takes
 GAP_MAX, GAP_MEAN = 0.08, 5e-3
 # Kernels as they were first ported (A: one thread per output pixel,
 # coordinates made by a dozen torch launches; B: a frame-tile pass with a
-# recomputed halo and a scalar product loop; C: one block per table, one
-# thread per row, a block barrier and a load of D per diagonal; F: three
-# launches over chunks of rows, every element read twice), measured by this
-# script at the same shapes on an NVIDIA H100 80GB HBM3 at 700.00 W:
-# event-pair and in-graph milliseconds.  PERF.md names the runs.
+# recomputed halo and a scalar product loop; C and E: one block per table,
+# one thread per row, a block barrier and loads of D (and R) per diagonal,
+# E's three exponentials on the chain; F: three launches over chunks of
+# rows, every element read twice), measured by this script at the same
+# shapes on an NVIDIA H100 80GB HBM3 at 700.00 W: event-pair and in-graph
+# milliseconds.  PERF.md names the runs.
 EARLIER = {"crop_resize_normalize": {"earlier_ms": 0.278, "earlier_graph_ms": 0.0705},
            "gcn_block_tail": {"earlier_ms": 6.95, "earlier_graph_ms": 6.34},
            "softdtw_wavefront": {"earlier_ms": 0.188, "earlier_graph_ms": 0.137},
+           "softdtw_backward": {"earlier_ms": 0.0863, "earlier_graph_ms": 0.0712},
            "requant_epilogue": {"earlier_ms": 2.08, "earlier_graph_ms": 0.875}}
 EARLIER_FROM = "the first port of the kernel, NVIDIA H100 80GB HBM3, 700.00 W (PERF.md)"
 TIME_KEYS = ("name", "ms", "graph_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-             "library_graph_ms", "ns_per_diagonal", "ring_graph_ms", "earlier_ms",
+             "library_graph_ms", "ns_per_diagonal", "ring_graph_ms", "two_launch_graph_ms",
+             "earlier_ms",
              "earlier_graph_ms", "earlier_from", "shape")
 # The keys of one entry of the `kernels` line.  The earlier times above go on
 # the `time` lines only: they are not this run's.
@@ -990,6 +1004,104 @@ def wavefront_occupancy(softdtw) -> dict:
     return out
 
 
+def backward_occupancy(softdtw) -> dict:
+    """Kernel E's launch at [96, 48, 48] (one train_align step) and at
+    [8, 128, 64] (the two-launch layout): rows, warps, tables, layout,
+    shared memory and blocks per SM."""
+    from golfaction_tpu_torch.ops import _kernels
+
+    fn = _kernels.bind("softdtw_bwd", "softdtw_backward_blocks_per_sm", "iiiiiii")
+    out = {}
+    for B, Ta, Tb in ((96, 48, 48), (8, 128, 64)):
+        g = softdtw.backward_geometry(B, Ta, Tb)
+        out[f"{B}x{Ta}x{Tb}"] = {**g._asdict(), "blocks_per_sm": fn(
+            Ta, Tb, g.rows, g.warps, g.tables, int(g.fits), g.ring)}
+    return out
+
+
+def differing_fields(runs) -> list:
+    """The output fields in which two lists of AnalysisResults differ in
+    any bit."""
+    fields = set()
+    for a, b in zip(*runs):
+        fields |= {k for k in ("keypoints", "phase_logits", "phase_labels", "error_probs")
+                   if not torch.equal(getattr(a, k), getattr(b, k))}
+        fields |= {k for k in ("cost", "path", "path_length")
+                   if not torch.equal(getattr(a.alignment, k), getattr(b.alignment, k))}
+    return sorted(fields)
+
+
+def compare_determinism(pipe, clips, boxes, reference) -> None:
+    """Compare mode twice.  The alignment stage (kernel C, the backtrack,
+    warp_by_path, the error head's re-run) from one chunk's keypoints must
+    give the same bits; so must two whole analyze_batch runs once cuDNN is
+    held to deterministic algorithms.  With cuDNN's default choice the
+    fields that differ are reported."""
+    with torch.inference_mode():
+        prep = [pipe._prepare(c, b) for c, b in zip(clips, boxes)]
+        fr, bx, vd = (pipe._to_device([p[k] for p in prep]) for k in range(3))
+        out = pipe._core_fn(fr, bx, vd)
+        del fr
+        align = [pipe._align_batch_fn(out["keypoints"], vd, reference.keypoints, reference.valid,
+                                      out["phase_logits"], out.get("kpt_aux"))
+                 for _ in range(2)]
+    stage_equal = all(torch.equal(align[0][k], align[1][k]) for k in align[0])
+    default = differing_fields([pipe.analyze_batch(clips, boxes=boxes, reference=reference)
+                                for _ in range(2)])
+    torch.backends.cudnn.deterministic = True
+    try:
+        held = differing_fields([pipe.analyze_batch(clips, boxes=boxes, reference=reference)
+                                 for _ in range(2)])
+    finally:
+        torch.backends.cudnn.deterministic = False
+    say("compare_determinism", clips=len(clips), alignment_stage_bit_equal=stage_equal,
+        whole_runs_differ_in={"cudnn_default": default, "cudnn_deterministic": held})
+    check(stage_equal, "two runs of the alignment stage on the same keypoints differ")
+    check(not held, f"two compare-mode runs with deterministic cuDNN differ in {held}")
+
+
+def kernel_counters() -> dict:
+    """Each kernel's wrapper, which counts its launches."""
+    from golfaction_tpu_torch.ops import gcn_tail, heatmap, preprocess, requant, softdtw
+
+    return {"preprocess": preprocess.crop_resize_normalize, "gcn_tail": gcn_tail.gcn_block_tail,
+            "softdtw": softdtw.wavefront, "decode": heatmap.decode_heatmaps,
+            "softdtw_bwd": softdtw.softdtw_backward, "requant": requant.requant_epilogue}
+
+
+def smoke_clips():
+    """The rendered 1080p clips and their boxes, from seed 0."""
+    rng = np.random.default_rng(0)
+    kp_clips = [swing_keypoints(CLIP_T, rng) for _ in range(2 + BATCH_CLIPS)]
+    return [render_clip(k, seed=i) for i, k in enumerate(kp_clips)], [boxes_of(k)
+                                                                     for k in kp_clips]
+
+
+def options_repeat(runs: int) -> int:
+    """`python3 chip_smoke.py --options-repeats N`: the options phase (9.)
+    N times in one process on the same clips, each time held to the CPU
+    (`options_cpu`); a line a run, then a summary.  Exits 1 if a run failed."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip())
+    clips, boxes = smoke_clips()
+    counters = kernel_counters()
+    failed = 0
+    for run in range(runs):
+        try:
+            options_phase(clips, boxes, counters)
+            say("options_repeat", run=run, ok=True)
+        except SmokeFailure as e:
+            failed += 1
+            say("options_repeat", run=run, ok=False, failure=str(e))
+    say("options_repeat_summary", runs=runs, failed=failed)
+    return 1 if failed else 0
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -1027,27 +1139,27 @@ def main() -> int:
 
     # 2. build --------------------------------------------------------------
     t0 = time.perf_counter()
-    _kernels.build_all()
-    say("build", seconds=round(time.perf_counter() - t0, 3), sources=list(_kernels.SOURCES))
+    _kernels.build_all(_kernels.SOURCES + _kernels.HOST_SOURCES)
+    say("build", seconds=round(time.perf_counter() - t0, 3),
+        sources=list(_kernels.SOURCES + _kernels.HOST_SOURCES))
     occ = _kernels.bind("gcn_tail", "gcn_tail_blocks_per_sm", "iiii")
     say("resources", ptxas={n: _kernels.resource_usage(n)
-                            for n in ("preprocess", "gcn_tail", "softdtw", "requant")},
+                            for n in ("preprocess", "gcn_tail", "softdtw", "softdtw_bwd",
+                                      "requant")},
         blocks_per_sm={"crop_resize_normalize": _kernels.bind(
             "preprocess", "crop_resize_normalize_blocks_per_sm", "")(),
             "gcn_tail [rows, taps, gates, apply]": {
                 C: [occ(i, C, 17, max(C // 4, 8)) for i in range(4)]
                 for C in (64, 128, 256)},
-            "softdtw_wavefront": wavefront_occupancy(softdtw)},
+            "softdtw_wavefront": wavefront_occupancy(softdtw),
+            "softdtw_backward": backward_occupancy(softdtw)},
         requant=requant_occupancy(requant))
     lap("device_build")
     pipe = Pipeline.from_artifacts("artifacts", device="cuda")
     cfg = pipe.cfg
     oh, ow = cfg.pose.input_hw
     H, W = VIDEO_HW
-    rng = np.random.default_rng(0)
-    kp_clips = [swing_keypoints(CLIP_T, rng) for _ in range(2 + BATCH_CLIPS)]
-    clips = [render_clip(k, seed=i) for i, k in enumerate(kp_clips)]
-    boxes = [boxes_of(k) for k in kp_clips]
+    clips, boxes = smoke_clips()
     say("render", clips=len(clips), frames=CLIP_T, hw=list(VIDEO_HW),
         seconds=round(time.perf_counter() - t0, 3))
 
@@ -1128,14 +1240,16 @@ def main() -> int:
         scores="exact", xy_atol=1e-4)
 
     bwd_errs = []
-    for B_, Ta, Tb in ((96, 48, 48), (8, 128, 64)):
+    for B_, Ta, Tb in ((96, 48, 48), (8, 128, 64), (2, 600, 20)):
         e = torch.nn.functional.normalize(torch.randn((B_, Ta + Tb, 128), generator=gen), dim=-1)
         D = softdtw.pairwise_sqdist(e[:, :Ta], e[:, Ta:]).to(dev).contiguous()
         R = softdtw.wavefront(D, cfg.align.gamma)
         got = softdtw.softdtw_backward(D, R, cfg.align.gamma)
         want = softdtw.softdtw_backward_plain(D, R, cfg.align.gamma)
         scale = float(want.abs().max())
-        bwd_errs.append({"shape": [B_, Ta, Tb], "max_abs_err": float((got - want).abs().max()),
+        bwd_errs.append({"shape": [B_, Ta, Tb], "layout": "one launch" if softdtw.backward_geometry(
+                             B_, Ta, Tb).fits else "two launches",
+                         "max_abs_err": float((got - want).abs().max()),
                          "max_rel_err": float(((got - want).abs()
                                                / want.abs().clamp(min=1e-6 * scale)).max()),
                          "largest_E": scale})
@@ -1150,10 +1264,7 @@ def main() -> int:
 
     lap("parity")
     # 4. main path ----------------------------------------------------------
-    counters = {"preprocess": preprocess.crop_resize_normalize,
-                "gcn_tail": gcn_tail.gcn_block_tail, "softdtw": softdtw.wavefront,
-                "decode": heatmap.decode_heatmaps, "softdtw_bwd": softdtw.softdtw_backward,
-                "requant": requant.requant_epilogue}
+    counters = kernel_counters()
     for fn in counters.values():
         fn.launches = 0
     torch.cuda.synchronize()
@@ -1172,6 +1283,16 @@ def main() -> int:
         check(launches[k] > 0, f"kernel {k} was not launched on the main path")
 
     check_results([res_ref, res_cmp, *res_batch], reference)
+    # The boxes analyze took from the C++ library, against the numpy body on
+    # the clip's first 16 frames (a 1080p numpy median of all 64 takes GBs).
+    from golfaction_tpu_torch.pipeline import video_io
+
+    head = clips[1][:16]
+    nb_gap = float(np.abs(video_io.estimate_person_boxes(head)
+                          - video_io.estimate_person_boxes(head, use_native=False)).max())
+    say("native_boxes", frames=16, hw=list(VIDEO_HW), max_px_vs_numpy=nb_gap, atol_px=1.0)
+    check(nb_gap <= 1.0, "C++ motion boxes more than 1 px off the numpy body")
+    compare_determinism(pipe, clips[2:], boxes[2:], reference)
     say("main_checks", results=2 + len(res_batch), ok=True,
         phase_labels=res_cmp.phase_labels[:8].tolist(),
         error_probs=[round(float(v), 6) for v in res_cmp.error_probs],
@@ -1300,6 +1421,10 @@ def main() -> int:
     nb, ops = softdtw_bwd_bytes_ops(B_, Ta, Ta)
     ms = cuda_ms(lambda: softdtw.softdtw_backward(D, R, gam))
     gms = graph_ms(lambda: softdtw.softdtw_backward(D, R, gam))
+    # The same call through the two-launch layout (weights to device memory,
+    # the chain through a cp.async ring), which larger tables take.
+    two = softdtw.backward_geometry(B_, Ta, Ta)._replace(fits=False, ring=8)
+    two_gms = graph_ms(lambda: softdtw.launch_backward(D, R, gam, two))
     plain = cuda_ms(lambda: softdtw.softdtw_backward_plain(D, R, gam), reps=3, warmup=1)
     fwd_ms = graph_ms(lambda: softdtw.wavefront(D, gam))
     bms, by = bound(nb, ops)
@@ -1308,11 +1433,13 @@ def main() -> int:
                         replaces="golfaction_tpu/ops/pallas/softdtw_kernel.py:241",
                         launches=0, max_abs_err=err["softdtw_bwd"],
                         ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
-                        graph_ms=gms,
+                        graph_ms=gms, ns_per_diagonal=gms / (2 * Ta - 1) * 1e6,
+                        two_launch_graph_ms=two_gms,
                         shape=f"D, R [{B_}, {Ta}, {Ta}], gamma {gam} (one train_align step); "
                               f"the forward wavefront at this shape takes {fwd_ms:.4f} ms "
                               f"in a graph",
-                        bytes=nb, ops=ops))
+                        bytes=nb, ops=ops, **EARLIER["softdtw_backward"],
+                        earlier_from=EARLIER_FROM))
     for en in entries:
         say("time", **{k: en[k] for k in TIME_KEYS if k in en})
 
@@ -1364,4 +1491,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--options-repeats"]:
+        sys.exit(options_repeat(int(sys.argv[2])))
     sys.exit(main())

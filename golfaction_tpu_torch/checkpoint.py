@@ -63,7 +63,7 @@ def save_params_npz(path: str, params: dict, dtype=np.float16) -> str:
     return path
 
 
-def load_params(root: str, names=("pose", "gcn", "align", "error")) -> dict:
+def load_params(root: str, names=("pose", "gcn", "align", "error", "refine")) -> dict:
     """{name: nested numpy tree} for every `<name>.npz` present."""
     base = _params_dir(root)
     out = {}
@@ -128,8 +128,10 @@ def load_pose_meta(root: str) -> dict:
 
 def config_for_artifacts(cfg, root: str):
     """Adapt a PipelineConfig to an artifacts tree: pose_meta.json's decode
-    settings, the pose stem's in_frames and the error head's aux variant.
-    No-op when they agree."""
+    settings, the pose stem's in_frames, the keypoint refiner when the tree
+    carries `refine.npz` and the error head's aux variant.  No-op when they
+    agree.  Raises on a refiner kept as an Orbax step directory
+    (`params/refine/step_*`), which the port cannot read."""
     overrides = []
     meta = load_pose_meta(root)
     for key, path in POSE_META_KEYS.items():
@@ -144,10 +146,19 @@ def config_for_artifacts(cfg, root: str):
     nf = detect_pose_in_frames(root)
     if nf != cfg.pose.in_frames:
         overrides.append(f"pose.in_frames={nf}")
-    # Only the compact npz form is read here, and the refiner ships only as
-    # an Orbax step directory, so a tree's refiner is never enabled.
-    if cfg.refine.enabled:
-        overrides.append("refine.enabled=False")
+    # The JAX package enables a refiner kept as an Orbax step directory; the
+    # port reads the compact npz form only, so such a tree is refused rather
+    # than run without its refiner.
+    steps = os.path.join(_params_dir(root), "refine")
+    if os.path.isdir(steps) and any(d.startswith("step_") for d in os.listdir(steps)):
+        raise ValueError(
+            f"{steps} holds a trained keypoint refiner as an Orbax checkpoint, which the "
+            "port does not read: convert it to the npz form first "
+            "(golfaction_tpu.train.checkpoint.save_params_npz of its params, as "
+            f"{os.path.join(_params_dir(root), 'refine.npz')}), so that it is not dropped")
+    has_refine = os.path.exists(os.path.join(_params_dir(root), "refine.npz"))
+    if has_refine != cfg.refine.enabled:
+        overrides.append(f"refine.enabled={has_refine}")
     aux = detect_error_aux(root)
     if aux is not None:
         for k, v in aux.items():

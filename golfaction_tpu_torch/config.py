@@ -5,7 +5,10 @@ The port computes in float32 throughout; the `dtype` fields are kept so that
 configs and overrides carry over unchanged.  The JAX package's `*_impl`
 fields, which choose between two implementations of one function, are not
 carried: each stage here has one, its kernel on the card, and an override
-naming such a field is refused.
+naming such a field is refused.  `preprocess_dtype` and `mesh` are carried
+but honoured only at their defaults (float32 crops, one device): a
+PipelineConfig with another value is refused when it is built, so also by
+`apply_overrides`.
 """
 
 from __future__ import annotations
@@ -155,6 +158,17 @@ class PipelineConfig:
     # Keypoint-seeded box refinement: a coarse pose pass every this many
     # frames seeds the boxes of the full pass; 0 = off.
     box_refine_stride: int = 0
+
+    def __post_init__(self):
+        if self.preprocess_dtype != "float32":
+            raise ValueError(
+                f"preprocess_dtype={self.preprocess_dtype!r} is not honoured by the port: "
+                "its crops are float32 (kernel A writes float32); only 'float32' is accepted")
+        if self.mesh != MeshConfig():
+            raise ValueError(
+                f"mesh={self.mesh!r} is not honoured by the port: it runs on one device "
+                "(data parallelism is not ported yet); only the default MeshConfig() is "
+                "accepted")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,15 +1,18 @@
-"""Build and load the hand-written CUDA kernels (csrc/*.cu).
+"""Build and load the hand-written CUDA kernels (csrc/*.cu) and the host
+library of the motion boxes (native/golfer_host.cpp).
 
-Each source is compiled by `nvcc` for sm_90a into a shared library with a
-plain C interface under `golfaction_tpu_torch/build/`, at first use, and
-loaded with ctypes.  The library name carries a hash of its source, so an
-edited kernel is rebuilt and a stale build is never loaded.  The compiler's
+Each CUDA source is compiled by `nvcc` for sm_90a, the host source by `g++`,
+into a shared library with a plain C interface under
+`golfaction_tpu_torch/build/`, at first use, and loaded with ctypes.  The
+library name carries a hash of its source (and of the headers in csrc/), so
+an edited kernel is rebuilt and a stale build is never loaded.  The compiler's
 output (`-Xptxas -v`: registers, shared memory and spills of every kernel) is
 kept beside the library; `resource_usage` reads it.  Every C entry
 point returns `cudaGetLastError()` after its launches; `check` raises on it.
 
 Nothing here runs at import time: this module is imported on machines with
-no CUDA toolkit, where only the kernels' plain versions run.
+no CUDA toolkit, where only the kernels' plain versions run (and the host
+library still builds, with g++).
 """
 
 from __future__ import annotations
@@ -25,11 +28,14 @@ from pathlib import Path
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
+NATIVE = PKG / "native"
 BUILD = PKG / "build"
 SOURCES = ("preprocess", "gcn_tail", "softdtw", "decode", "softdtw_bwd", "requant")
+HOST_SOURCES = ("golfer_host",)
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-pthread", "-std=c++17")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[tuple[str, str], ctypes._CFuncPtr] = {}
@@ -43,21 +49,40 @@ def _nvcc() -> str:
     return found
 
 
+def _gxx() -> str:
+    found = shutil.which("g++")
+    if found is None:
+        raise RuntimeError("g++ not found: the motion-box library "
+                           "(native/golfer_host.cpp) needs a C++ compiler")
+    return found
+
+
+def _source(name: str) -> Path:
+    return NATIVE / f"{name}.cpp" if name in HOST_SOURCES else CSRC / f"{name}.cu"
+
+
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    src, flags = _source(name).read_bytes(), GXX_FLAGS
+    if name not in HOST_SOURCES:
+        flags = NVCC_FLAGS
+        for header in sorted(CSRC.glob("*.cuh")):
+            src += header.read_bytes()
+    digest = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:12]
     return BUILD / f"lib{name}_{digest}.so"
 
 
 def _start_build(name: str):
-    """Start nvcc for one source; returns (process, tmp path, final path) or
-    None when the library is already built."""
+    """Start the compiler for one source; returns (process, tmp path, final
+    path) or None when the library is already built."""
     out = _lib_path(name)
     if out.exists():
         return None
     BUILD.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    if name in HOST_SOURCES:
+        cmd = [_gxx(), *GXX_FLAGS, "-o", str(tmp), str(_source(name))]
+    else:
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_source(name))]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
     return proc, tmp, out
 
@@ -66,13 +91,14 @@ def _finish_build(job) -> None:
     proc, tmp, out = job
     log, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {out.name}:\n{log.decode(errors='replace')}")
+        raise RuntimeError(f"{proc.args[0]} failed for {out.name}:\n"
+                           f"{log.decode(errors='replace')}")
     out.with_suffix(".log").write_bytes(log)
     os.replace(tmp, out)
 
 
 def build_all(names=SOURCES) -> None:
-    """Compile every listed source that is not built yet, one nvcc each,
+    """Compile every listed source that is not built yet, one compiler each,
     all started together."""
     jobs = [j for j in (_start_build(n) for n in names) if j is not None]
     for job in jobs:
@@ -81,7 +107,7 @@ def build_all(names=SOURCES) -> None:
 
 def resource_usage(name: str) -> list[dict]:
     """What ptxas reported for each kernel of csrc/<name>.cu when it was
-    built: name (with its integer template argument), registers, static
+    built: name (with its template arguments), registers, static
     shared memory, spill bytes."""
     build_all((name,))
     log = _lib_path(name).with_suffix(".log").read_text(errors="replace")
@@ -91,9 +117,11 @@ def resource_usage(name: str) -> list[dict]:
         regs = re.search(r"Used (\d+) registers", body)
         smem = re.search(r"(\d+) bytes smem", body)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", body)
-        short = re.search(r"\d+([a-z_]+_kernel)(?:ILi(\d+)E)?", entry)
+        short = re.search(r"\d+([a-z_]+_kernel)((?:I|L[ib]\d+E)*)", entry)
         if short:
-            entry = short.group(1) + (f"<{short.group(2)}>" if short.group(2) else "")
+            args = [v if t == "i" else ("false", "true")[int(v)]
+                    for t, v in re.findall(r"L([ib])(\d+)E", short.group(2))]
+            entry = short.group(1) + (f"<{', '.join(args)}>" if args else "")
         rows.append({"kernel": entry, "registers": int(regs.group(1)) if regs else None,
                      "static_smem": int(smem.group(1)) if smem else 0,
                      "spill_bytes": int(spill.group(1)) + int(spill.group(2)) if spill else None})
@@ -101,7 +129,8 @@ def resource_usage(name: str) -> list[dict]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for csrc/<name>.cu, building it on first use."""
+    """The loaded library for csrc/<name>.cu (or native/<name>.cpp), building
+    it on first use."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
@@ -111,16 +140,18 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float,
+           "l": ctypes.c_int64}
 
 
-def bind(name: str, symbol: str, sig: str):
-    """C entry point `symbol` of csrc/<name>.cu with argument types from
-    `sig` (p = pointer or stream, i = int, f = float); returns int."""
+def bind(name: str, symbol: str, sig: str, restype=ctypes.c_int):
+    """C entry point `symbol` of library `name` with argument types from
+    `sig` (p = pointer or stream, i = int, f = float, l = int64); returns
+    `restype` (int unless given)."""
     fn = _fns.get((name, symbol))
     if fn is None:
         fn = getattr(load(name), symbol)
-        fn.restype = ctypes.c_int
+        fn.restype = restype
         fn.argtypes = [_CTYPES[c] for c in sig]
         _fns[(name, symbol)] = fn
     return fn

@@ -9,7 +9,9 @@ backward, the E-recursion as a reverse wavefront (kernel E).
     CPU tensor it runs `wavefront_plain`, the same anti-diagonal recursion.
   * `softdtw_backward` — E = d cost / d D of a batch of tables, which is
     also the soft alignment matrix.  On a CUDA tensor it launches the
-    hand-written kernel (csrc/softdtw_bwd.cu), which replaces the TPU kernel
+    hand-written kernel (csrc/softdtw_bwd.cu: the weights computed up front
+    by the whole block, then one warp a table runs the chain, cut by
+    `backward_geometry`), which replaces the TPU kernel
     golfaction_tpu/ops/pallas/softdtw_kernel.py (_backward_batch_jit); on a
     CPU tensor it runs `softdtw_backward_plain`.
   * `softdtw_cost` — the differentiable cost: forward through `wavefront`,
@@ -23,6 +25,7 @@ backward, the E-recursion as a reverse wavefront (kernel E).
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -191,6 +194,15 @@ def wavefront_geometry(B: int, Ta: int, Tb: int, sms: int = H100_SMS) -> Wavefro
                              _wavefront_smem(Ta, Tb, warps, tables, staged))
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _sms_of(t: torch.Tensor) -> int:
+    return _sm_count(t.device.index if t.device.index is not None else torch.cuda.current_device())
+
+
 def wavefront(D: torch.Tensor, gamma: float) -> torch.Tensor:
     """DP table R [B, Ta, Tb] of cost matrices D [B, Ta, Tb] (kernel C)."""
     if D.device.type == "cpu":
@@ -199,8 +211,7 @@ def wavefront(D: torch.Tensor, gamma: float) -> torch.Tensor:
     B, Ta, Tb = D.shape
     if B == 0:
         return torch.empty_like(D)
-    idx = D.device.index if D.device.index is not None else torch.cuda.current_device()
-    geo = wavefront_geometry(B, Ta, Tb, torch.cuda.get_device_properties(idx).multi_processor_count)
+    geo = wavefront_geometry(B, Ta, Tb, _sms_of(D))
     R = launch_wavefront(D, gamma, geo)
     wavefront.launches += 1
     return R
@@ -273,6 +284,66 @@ def softdtw_backward_plain(D: torch.Tensor, R: torch.Tensor, gamma: float) -> to
     return table[:, ii + jj, ii]
 
 
+BWD_FIT_THREADS = 1024      # a block of E's one-launch layout (csrc/softdtw_bwd.cu kFitThreads)
+BWD_MAX_WARPS = 32          # warps a table may take: Ta <= 32 * 32 * MAX_ROWS
+
+
+class BackwardGeometry(NamedTuple):
+    """Kernel E's launch: each lane holds `rows` consecutive rows, a table
+    takes `warps` warps (more than one only for Ta > 32 * MAX_ROWS) and a
+    block `tables` tables; `fits`: one launch with D, R and the weights of
+    the block's tables in shared memory, else a launch that writes the
+    weights to device memory and a chain launch with a ring of `ring`
+    diagonals of them a warp; `smem` bytes a block."""
+    rows: int
+    warps: int
+    tables: int
+    fits: bool
+    ring: int
+    smem: int
+
+
+def _backward_smem(Ta: int, Tb: int, rows: int, warps: int, tables: int, fits: bool,
+                   ring: int) -> int:
+    """Shared memory as csrc/softdtw_bwd.cu lays it out: per table the staged
+    D and R slots and the weights [Ta+Tb-1][3][rows][32] when `fits`; else a
+    ring [ring][3][rows][32] a warp, then the boundary hand-over [2, warps]."""
+    if fits:
+        slot = -(-Ta * Tb // 4) * 4
+        return 4 * tables * (2 * slot + 3 * (Ta + Tb - 1) * 32 * rows)
+    return 4 * (tables * warps * ring * 3 * 32 * rows + 2 * warps)
+
+
+@functools.lru_cache(maxsize=256)
+def backward_geometry(B: int, Ta: int, Tb: int, sms: int = H100_SMS) -> BackwardGeometry:
+    """Rows and warps as kernel C's; several tables a block only when B
+    outnumbers the SMs; one launch where the block's tables and their
+    weights fit in shared memory (one warp a table), else two, with a ring
+    of diagonals a warp: 32 (one warp a table) or 8 where they fit, else 2
+    (more than 9 warps a table)."""
+    rows = 1
+    while rows < MAX_ROWS and 32 * rows < Ta:
+        rows *= 2
+    warps = -(-Ta // (32 * rows))
+    if warps > BWD_MAX_WARPS:
+        raise ValueError(f"softdtw backward on the card: Ta = {Ta} takes more than "
+                         f"{BWD_MAX_WARPS} warps of {MAX_ROWS} rows; pass the transposed "
+                         f"problem (E of D^T is E^T) when Tb is smaller")
+    tables = 1 if warps > 1 else max(1, min(TABLES_PER_BLOCK, B // sms))
+    if warps == 1:
+        t = tables
+        while t > 1 and _backward_smem(Ta, Tb, rows, 1, t, True, 0) > MAX_SMEM:
+            t //= 2
+        smem = _backward_smem(Ta, Tb, rows, 1, t, True, 0)
+        if smem <= MAX_SMEM:
+            return BackwardGeometry(rows, 1, t, True, 0, smem)
+        ring = 32 if _backward_smem(Ta, Tb, rows, 1, tables, False, 32) <= MAX_SMEM else 8
+    else:
+        ring = 8 if warps <= 9 else 2
+    return BackwardGeometry(rows, warps, tables, False, ring,
+                            _backward_smem(Ta, Tb, rows, warps, tables, False, ring))
+
+
 def softdtw_backward(D: torch.Tensor, R: torch.Tensor, gamma: float) -> torch.Tensor:
     """E [B, Ta, Tb] = d R[:, -1, -1] / d D from the cost matrices D and
     their soft-DTW tables R (kernel E).  gamma > 0."""
@@ -286,14 +357,37 @@ def softdtw_backward(D: torch.Tensor, R: torch.Tensor, gamma: float) -> torch.Te
     if R.shape != D.shape:
         raise ValueError(f"softdtw backward: D {tuple(D.shape)} and R {tuple(R.shape)} differ")
     B, Ta, Tb = D.shape
-    E = torch.empty_like(D)
     if B == 0:
-        return E
-    fn = _kernels.bind("softdtw_bwd", "softdtw_backward_launch", "pppiiifp")
-    rc = fn(_kernels.ptr(D), _kernels.ptr(R), _kernels.ptr(E), B, Ta, Tb, float(gamma),
-            _kernels.stream_of(D))
-    _kernels.check(rc, "softdtw backward kernel")
+        return torch.empty_like(D)
+    if Ta > BWD_MAX_WARPS * 32 * MAX_ROWS and Tb < Ta:
+        # E of the transposed problem is E transposed, to the bit: the
+        # successors' sum only swaps its first two terms.
+        E = softdtw_backward(D.transpose(1, 2).contiguous(), R.transpose(1, 2).contiguous(),
+                             gamma)
+        return E.transpose(1, 2).contiguous()
+    geo = backward_geometry(B, Ta, Tb, _sms_of(D))
+    E = launch_backward(D, R, gamma, geo)
     softdtw_backward.launches += 1
+    return E
+
+
+def launch_backward(D: torch.Tensor, R: torch.Tensor, gamma: float,
+                    geo: BackwardGeometry) -> torch.Tensor:
+    """Kernel E on checked CUDA D, R [B, Ta, Tb] under launch `geo` (the
+    wrapper's, or another one to measure); counts no launch."""
+    B, Ta, Tb = D.shape
+    E = torch.empty_like(D)
+    W = None
+    if not geo.fits:         # the weights [B, Ta+Tb-1, 3, rows, 32 * warps]
+        W = torch.empty(B * (Ta + Tb - 1) * 3 * 32 * geo.rows * geo.warps,
+                        dtype=torch.float32, device=D.device)
+    vec = ((Ta * Tb) % 4 == 0 and D.data_ptr() % 16 == 0 and R.data_ptr() % 16 == 0
+           and E.data_ptr() % 16 == 0)
+    fn = _kernels.bind("softdtw_bwd", "softdtw_backward_launch", "ppppiiifiiiiiip")
+    rc = fn(_kernels.ptr(D), _kernels.ptr(R), _kernels.ptr(E),
+            _kernels.ptr(W) if W is not None else None, B, Ta, Tb, float(gamma), geo.rows,
+            geo.warps, geo.tables, int(geo.fits), geo.ring, int(vec), _kernels.stream_of(D))
+    _kernels.check(rc, "softdtw backward kernel")
     return E
 
 
@@ -383,22 +477,42 @@ def _backtrack(R: torch.Tensor, la: torch.Tensor, lb: torch.Tensor):
 
 
 def warp_by_path(ref_vals: torch.Tensor, path: torch.Tensor, length, T: int) -> torch.Tensor:
-    """Warp per-frame reference values onto the clip timeline via a DTW path.
+    """Warp per-frame reference values onto the clip timeline via DTW paths.
 
-    ref_vals [Tr, ...], path [L, 2] int32 (clip_idx, ref_idx) with -1
-    padding beyond `length` -> [T, ...]: per clip frame, the mean of the
-    reference frames the path aligns to it (zeros where the path never
-    visits).
+    ref_vals [Tr, ...], path [N, L, 2] int32 (clip_idx, ref_idx) rows with -1
+    padding beyond `length` [N] -> [N, T, ...]: per clip frame, the mean of
+    the reference frames its path aligns to it (zeros where the path never
+    visits).  One path [L, 2] with a scalar length gives [T, ...].
+
+    The sums take a fixed order, so that two runs give the same bits: the
+    path's entries are sorted by clip frame (stably: a DTW path is already
+    monotone, so each frame's entries stay one run in path order), each run
+    is laid out along a row of a [N, T + 1, S] table (S the longest run;
+    every slot written once, no atomics) and summed along it one slot after
+    another, in path order as the JAX scatter-add sums on the CPU.
     """
-    L = path.shape[0]
+    single = path.dim() == 2
+    if single:
+        path = path[None]
     dev = ref_vals.device
-    lmask = torch.arange(L, device=dev) < length
-    ti = torch.where(lmask, path[:, 0].long(), T)
-    rj = torch.where(lmask, path[:, 1].long(), 0).clamp(0, ref_vals.shape[0] - 1)
+    N, L = path.shape[:2]
     extra = (1,) * (ref_vals.dim() - 1)
-    w = lmask.float().reshape(L, *extra)
-    acc = torch.zeros((T + 1, *ref_vals.shape[1:]), dtype=torch.float32, device=dev)
-    acc.index_add_(0, ti, ref_vals[rj].float() * w)
-    cnt = torch.zeros((T + 1,), dtype=torch.float32, device=dev)
-    cnt.index_add_(0, ti, lmask.float())
-    return acc[:T] / cnt[:T].clamp(min=1.0).reshape(T, *extra)
+    length = torch.as_tensor(length, device=dev).reshape(-1).expand(N)
+    lmask = torch.arange(L, device=dev)[None, :] < length[:, None]
+    ti = torch.where(lmask, path[..., 0].long(), T)          # bucket T collects the pads
+    rj = torch.where(lmask, path[..., 1].long(), 0).clamp(0, ref_vals.shape[0] - 1)
+    ti, order = torch.sort(ti, dim=1, stable=True)
+    rj = torch.gather(rj, 1, order)
+    w = torch.gather(lmask, 1, order).float()
+    pos = torch.arange(L, device=dev) - torch.searchsorted(ti, ti)   # place in its run
+    S = int(pos.max()) + 1 if L else 1
+    n = torch.arange(N, device=dev)[:, None].expand(N, L)
+    acc = torch.zeros((N, T + 1, S, *ref_vals.shape[1:]), dtype=torch.float32, device=dev)
+    acc[n, ti, pos] = ref_vals[rj].float() * w.reshape(N, L, *extra)
+    cnt = torch.zeros((N, T + 1, S), dtype=torch.float32, device=dev)
+    cnt[n, ti, pos] = w
+    total = acc[:, :T, 0]
+    for k in range(1, S):          # in path order: a run's padding adds exact zeros
+        total = total + acc[:, :T, k]
+    out = total / cnt[:, :T].sum(2).clamp(min=1.0).reshape(N, T, *extra)
+    return out[0] if single else out

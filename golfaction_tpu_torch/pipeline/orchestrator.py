@@ -239,9 +239,7 @@ class Pipeline:
         path, length = softdtw.dtw_path_masked(D, la, lb)
         out = {"cost": cost, "path": path, "path_length": length}
         if phase_logits is not None:
-            T = kpts.shape[1]
-            ref_warp = torch.stack([softdtw.warp_by_path(ref_kpts, path[n], length[n], T)
-                                    for n in range(N)])
+            ref_warp = softdtw.warp_by_path(ref_kpts, path, length, kpts.shape[1])
             out["error_logits"] = self.error_model(kpts, phase_logits, valid, ref_warp, aux)
         return out
 

@@ -2,7 +2,9 @@
 
 Boxes come from the caller or from motion-energy estimation (frame
 differencing against the clip median, for a static camera watching one
-moving golfer), with a full-frame-ish fallback when motion is too weak.
+moving golfer), with a full-frame-ish fallback when motion is too weak.  The
+estimate runs in the multithreaded C++ library (golfaction_tpu_torch.native)
+by default, as in the JAX package; the numpy body here is its oracle.
 """
 
 from __future__ import annotations
@@ -11,6 +13,8 @@ import os
 from typing import Optional, Sequence
 
 import numpy as np
+
+from golfaction_tpu_torch import native
 
 
 def load_video(path: str, max_frames: Optional[int] = None) -> tuple[np.ndarray, float]:
@@ -37,9 +41,15 @@ def load_video(path: str, max_frames: Optional[int] = None) -> tuple[np.ndarray,
 
 
 def estimate_person_boxes(frames: np.ndarray, smooth: int = 9,
-                          min_size: float = 0.15) -> np.ndarray:
+                          min_size: float = 0.15, use_native: bool = True) -> np.ndarray:
     """Motion-energy person boxes [T, 4] float32 (cx, cy, w, h) in pixels,
-    median-smoothed over time, with a minimum size (fraction of the frame)."""
+    median-smoothed over time, with a minimum size (fraction of the frame).
+
+    `use_native` (the default): the C++ library, built with g++ at first use
+    (a failed build raises); else this numpy body, up to 1 px apart (the
+    library takes its percentiles from per-frame histograms)."""
+    if use_native:
+        return native.motion_boxes(frames, min_size=min_size, smooth=smooth)
     T, H, W, _ = frames.shape
     gray = frames.mean(axis=-1).astype(np.float32)
     background = np.median(gray, axis=0)

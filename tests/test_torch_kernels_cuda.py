@@ -222,6 +222,91 @@ def test_softdtw_backward_kernel_matches_plain(dev, B, Ta, Tb):
     np.testing.assert_array_equal(g.cpu().numpy(), got.cpu().numpy())
 
 
+def _bwd_inputs(B, Ta, Tb, dev, seed):
+    rng = np.random.default_rng(seed)
+    a = torch.from_numpy(rng.normal(size=(B, Ta, 16)).astype(np.float32))
+    c = torch.from_numpy(rng.normal(size=(B, Tb, 16)).astype(np.float32))
+    a, c = (torch.nn.functional.normalize(t, dim=-1).to(dev) for t in (a, c))
+    D = softdtw.pairwise_sqdist(a, c).contiguous()
+    if B > 1 and Ta > 2 and Tb > 2:
+        D[0, Ta - 2:, :] = 1e10                       # a padded tail: the corner is INF
+        D[-1, Ta // 2, :Tb - 1] = 1e10                # INF cells inside the table
+    return D
+
+
+# Kernel E's layouts (ops/softdtw.py backward_geometry): one launch at
+# (96, 48, 48), (5, 7, 3), (1, 1, 1), (4, 64, 64), (1, 65, 65) (231,968 bytes
+# of shared memory) and (600, 48, 48) (two tables a block, the last block
+# short); the weights through device memory and a ring of 8 diagonals at
+# (8, 128, 64), (200, 300, 17) and (2, 600, 20) (three warps a table); a
+# ring of 2 at (1, 3000, 5) (12 warps); Ta > 8192 through the transposed
+# problem at (1, 8200, 3).
+# The long tables at one gamma: their plain version takes seconds.
+@pytest.mark.parametrize("B,Ta,Tb,gamma", [
+    (B, Ta, Tb, g) for B, Ta, Tb in ((96, 48, 48), (5, 7, 3), (1, 1, 1), (4, 64, 64), (1, 65, 65),
+                                     (600, 48, 48), (8, 128, 64), (200, 300, 17), (2, 600, 20))
+    for g in (0.1, 1.0)] + [(1, 3000, 5, 0.1), (1, 8200, 3, 0.1)])
+def test_softdtw_backward_layouts_match_plain(dev, B, Ta, Tb, gamma):
+    D = _bwd_inputs(B, Ta, Tb, dev, seed=Ta + Tb + B)
+    R = softdtw.wavefront_plain(D, gamma) if Ta > 8192 else softdtw.wavefront(D, gamma)
+    n0 = softdtw.softdtw_backward.launches
+    got = softdtw.softdtw_backward(D, R, gamma)
+    want = softdtw.softdtw_backward_plain(D, R, gamma)
+    torch.cuda.synchronize()
+    assert softdtw.softdtw_backward.launches == n0 + 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4,
+                               atol=1e-6 * float(want.abs().max()))
+    assert torch.equal(softdtw.softdtw_backward(D, R, gamma), got)       # two runs, same bits
+    if Ta <= 8192:
+        g = softdtw.backward_geometry(B, Ta, Tb)
+        if g.fits:
+            # The same weights and chain through device memory and the ring.
+            ring = softdtw.launch_backward(D, R, gamma, g._replace(fits=False, ring=8, smem=0))
+            assert torch.equal(ring, got)
+        # A view 4 bytes off a 16-byte boundary takes the scalar copies.
+        flat = torch.empty(2 * D.numel() + 2, device=dev)
+        Do, Ro = flat[1:D.numel() + 1].view_as(D), flat[D.numel() + 2:].view_as(D)
+        Do.copy_(D)
+        Ro.copy_(R)
+        assert torch.equal(softdtw.softdtw_backward(Do, Ro, gamma), got)
+
+
+@pytest.mark.parametrize("B,Ta,Tb", [(96, 48, 48), (3, 20, 31), (2, 300, 40)])
+def test_softdtw_cost_gradient_on_card_matches_cpu(dev, B, Ta, Tb):
+    D = _bwd_inputs(B, Ta, Tb, torch.device("cpu"), seed=B * Ta)
+    weights = torch.linspace(0.5, 1.5, B)
+    grads = {}
+    for name in ("cpu", "cuda"):
+        Dg = D.to(name).clone().requires_grad_()
+        (softdtw.softdtw_cost(Dg, 0.1) * weights.to(name)).sum().backward()
+        grads[name] = Dg.grad.cpu()
+    np.testing.assert_allclose(grads["cuda"].numpy(), grads["cpu"].numpy(), rtol=1e-4,
+                               atol=1e-6 * float(grads["cpu"].abs().max()))
+
+
+def test_compare_mode_runs_are_bit_equal(dev):
+    """Two compare-mode analyze_batch runs on the same clips give the same
+    bits: no output of the port depends on the order of float atomics
+    (warp_by_path sums in path order).  cuDNN is held to deterministic
+    algorithms: its default choice for a convolution may accumulate with
+    atomics (chip_smoke.py's `compare_determinism` reports where)."""
+    import chip_smoke
+
+    rng = np.random.default_rng(5)
+    clips = [rng.integers(0, 256, (n, 96, 128, 3), dtype=np.uint8) for n in (14, 20, 9)]
+    ref_kpts = np.concatenate([rng.uniform(20, 100, (16, 17, 2)),
+                               rng.uniform(0.2, 1.0, (16, 17, 1))], -1).astype(np.float32)
+    pipe = Pipeline(_small_cfg(), device="cuda", seed=0)
+    ref = Skeleton(keypoints=torch.from_numpy(ref_kpts).to(dev),
+                   valid=torch.ones(16, dtype=torch.bool, device=dev))
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = [pipe.analyze_batch(clips, reference=ref) for _ in range(2)]
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert chip_smoke.differing_fields(runs) == []
+
+
 @pytest.mark.parametrize("gamma", [0.1, 0.0])
 def test_wavefront_staged_and_ring_paths_agree(dev, gamma):
     rng = np.random.default_rng(7)
@@ -280,6 +365,14 @@ def test_kernel_geometry_agrees_with_python(dev):
     for B, Ta, Tb in ((4, 64, 64), (96, 48, 48), (2, 600, 20), (4, 512, 512), (600, 30, 31)):
         g = softdtw.wavefront_geometry(B, Ta, Tb)
         assert smem(Ta, Tb, g.warps, g.tables, int(g.staged)) == g.smem
+    bwd_smem = _kernels.bind("softdtw_bwd", "softdtw_backward_smem", "iiiiiii")
+    bwd_blocks = _kernels.bind("softdtw_bwd", "softdtw_backward_blocks_per_sm", "iiiiiii")
+    for B, Ta, Tb in ((96, 48, 48), (4, 64, 64), (1, 65, 65), (600, 48, 48), (8, 128, 64),
+                      (2, 600, 20), (1, 3000, 5), (1, 8192, 3), (1, 1, 1)):
+        g = softdtw.backward_geometry(B, Ta, Tb)
+        args = (Ta, Tb, g.rows, g.warps, g.tables, int(g.fits), g.ring)
+        assert bwd_smem(*args) == g.smem
+        assert bwd_blocks(*args) >= 1
 
 
 def test_tail_weight_layout_agrees_with_the_kernel(dev):

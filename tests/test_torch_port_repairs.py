@@ -1,0 +1,134 @@
+"""Faults of the port against the JAX package, repaired: the batched,
+fixed-order `warp_by_path` against the JAX function; config fields the port
+does not honour refused where they are set; a refiner kept as an Orbax step
+directory refused rather than dropped, and one kept as npz loaded."""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from golfaction_tpu.ops import softdtw as jsd
+from golfaction_tpu_torch import checkpoint, weights
+from golfaction_tpu_torch import config as tcfg
+from golfaction_tpu_torch.models.refine import KeypointRefiner
+from golfaction_tpu_torch.ops import softdtw as tsd
+
+
+def _paths(T, Tr, lengths, seed):
+    """Hard-DTW paths [N, T+Tr-1, 2] of random tables over D[:la, :lb], cut
+    to `lengths` where a length is shorter than the path (0 included)."""
+    rng = np.random.default_rng(seed)
+    N = len(lengths)
+    D = torch.from_numpy(rng.uniform(0, 4, (N, T, Tr)).astype(np.float32))
+    la = torch.from_numpy(rng.integers(T // 2, T + 1, N).astype(np.int32))
+    lb = torch.from_numpy(rng.integers(Tr // 2, Tr + 1, N).astype(np.int32))
+    path, n = tsd.dtw_path_masked(D, la, lb)
+    length = torch.minimum(n, torch.tensor(lengths, dtype=torch.int32))
+    return path, length
+
+
+def _revisiting_path(T, Tr):
+    """Clip frame 3 aligned to reference frames 1-6, frame 9 to 7-9: runs of
+    several entries on one clip frame."""
+    rows = [(0, 0), (1, 0), (2, 1), (3, 1), (3, 2), (3, 3), (3, 4), (3, 5), (3, 6), (4, 6),
+            (5, 6), (6, 7), (7, 7), (8, 7), (9, 7), (9, 8), (9, 9)]
+    L = T + Tr - 1
+    path = np.full((L, 2), -1, np.int32)
+    path[:len(rows)] = rows
+    return torch.from_numpy(path), len(rows)
+
+
+def _jax_warp(ref_vals, path, length, T):
+    return np.stack([np.asarray(jsd.warp_by_path(jnp.asarray(ref_vals), jnp.asarray(p), int(n), T))
+                     for p, n in zip(path, length)])
+
+
+@pytest.mark.parametrize("T,Tr,lengths", [(16, 10, (25, 12, 0, 3)), (12, 12, (23, 1)),
+                                          (20, 7, (26, 26, 26, 26, 26)), (5, 9, (0,))])
+@pytest.mark.parametrize("extra", [(17, 3), ()])
+def test_batched_warp_matches_jax(T, Tr, lengths, extra):
+    path, length = _paths(T, Tr, lengths, seed=T * Tr)
+    rev, n_rev = _revisiting_path(T, Tr) if T >= 10 and Tr >= 10 else (None, 0)
+    if rev is not None:
+        path = torch.cat([path, rev[None]])
+        length = torch.cat([length, torch.tensor([n_rev], dtype=torch.int32)])
+    ref_vals = np.random.default_rng(1).normal(0, 300, (Tr, *extra)).astype(np.float32)
+    got = tsd.warp_by_path(torch.from_numpy(ref_vals), path, length, T)
+    assert got.shape == (len(length), T, *extra)
+    want = _jax_warp(ref_vals, path.numpy(), length.numpy(), T)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    # One path at a time (the single-pair form) gives the same bits.
+    for k in range(len(length)):
+        one = tsd.warp_by_path(torch.from_numpy(ref_vals), path[k], length[k], T)
+        assert torch.equal(one, got[k])
+    if 0 in length.tolist():
+        assert not got[length.tolist().index(0)].any()
+
+
+def test_warp_averages_a_revisited_frame():
+    path, n = _revisiting_path(12, 10)
+    ref = torch.arange(10, dtype=torch.float32)[:, None]
+    out = tsd.warp_by_path(ref, path, n, 12)
+    assert out[3, 0] == pytest.approx((1 + 2 + 3 + 4 + 5 + 6) / 6)
+    assert out[9, 0] == pytest.approx(8.0) and out[0, 0] == 0.0
+    assert (out[10:] == 0).all()                    # frames the path never visits
+
+
+@pytest.mark.parametrize("build", [
+    lambda: tcfg.PipelineConfig(preprocess_dtype="bfloat16"),
+    lambda: tcfg.get_config("full_pipeline", preprocess_dtype="bfloat16"),
+    lambda: tcfg.apply_overrides(tcfg.get_config(), ["preprocess_dtype=bfloat16"]),
+    lambda: dataclasses.replace(tcfg.get_config(), preprocess_dtype="float16"),
+])
+def test_a_preprocess_dtype_other_than_float32_is_refused(build):
+    with pytest.raises(ValueError, match="preprocess_dtype"):
+        build()
+
+
+@pytest.mark.parametrize("override", ["mesh.data_parallel=2", "mesh.model_parallel=4",
+                                      "mesh.data_axis='batch'"])
+def test_a_non_default_mesh_is_refused(override):
+    with pytest.raises(ValueError, match="mesh"):
+        tcfg.apply_overrides(tcfg.get_config(), [override])
+    with pytest.raises(ValueError, match="mesh"):
+        tcfg.PipelineConfig(mesh=tcfg.MeshConfig(data_parallel=8))
+
+
+def test_the_defaults_are_still_accepted():
+    cfg = tcfg.apply_overrides(tcfg.get_config(), ["preprocess_dtype='float32'",
+                                                   "mesh.data_parallel=-1", "frame_batch=16"])
+    assert cfg.preprocess_dtype == "float32" and cfg.mesh == tcfg.MeshConfig()
+    assert cfg.frame_batch == 16
+
+
+def test_an_orbax_refiner_is_refused_naming_the_npz_conversion(tmp_path):
+    (tmp_path / "params" / "refine" / "step_00000001").mkdir(parents=True)
+    with pytest.raises(ValueError, match=r"npz.*refine\.npz|refine\.npz"):
+        checkpoint.config_for_artifacts(tcfg.get_config(), str(tmp_path))
+    with pytest.raises(ValueError, match="npz"):
+        checkpoint.config_for_artifacts(
+            tcfg.apply_overrides(tcfg.get_config(), ["refine.enabled=True"]), str(tmp_path))
+
+
+def test_an_npz_refiner_is_enabled_and_loaded(tmp_path):
+    (tmp_path / "params" / "refine").mkdir(parents=True)      # no step_* inside
+    cfg = tcfg.get_config()
+    assert checkpoint.config_for_artifacts(cfg, str(tmp_path)) == cfg
+    model = KeypointRefiner(cfg.refine)
+    gen = torch.Generator().manual_seed(3)
+    weights.init_random(model, gen)
+    checkpoint.save_params_npz(str(tmp_path / "params" / "refine.npz"),
+                               weights.to_flax({"refine": model.state_dict()})["refine"])
+    got = checkpoint.config_for_artifacts(cfg, str(tmp_path))
+    assert got.refine.enabled and got == dataclasses.replace(
+        cfg, refine=dataclasses.replace(cfg.refine, enabled=True))
+    sd = weights.from_flax(checkpoint.load_params(str(tmp_path)))["refine"]
+    for k, v in model.state_dict().items():     # float16 on disk, as every npz checkpoint
+        np.testing.assert_allclose(sd[k].numpy(), v.numpy(), rtol=1e-3, atol=1e-4)
+    # A refiner the config asks for is dropped only when the tree has none.
+    (tmp_path / "params" / "refine.npz").unlink()
+    on = tcfg.apply_overrides(cfg, ["refine.enabled=True"])
+    assert not checkpoint.config_for_artifacts(on, str(tmp_path)).refine.enabled
