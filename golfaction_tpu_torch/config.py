@@ -1,8 +1,12 @@
 """Typed configuration: the same dataclasses, presets and `--set` override
 syntax as the JAX package, so one config describes both implementations.
 
-The port computes in float32 throughout; the `dtype` fields are kept so that
-configs and overrides carry over unchanged.  The JAX package's `*_impl`
+Each model's `dtype` field sets its compute dtype as flax's `dtype` does
+(models/precision.py: parameters float32, products and normalizations'
+results rounded to bfloat16, the layers the JAX package pins to float32 kept
+float32), so the shipped default runs bfloat16.  The GCN's inference is the
+exception the JAX package makes too: on the TPU it is float32 whatever
+`GCNConfig.dtype` says (models/gcn.py).  The JAX package's `*_impl`
 fields, which choose between two implementations of one function, are not
 carried: each stage here has one, its kernel on the card, and an override
 naming such a field is refused.  `preprocess_dtype` and `mesh` are carried

@@ -1,6 +1,8 @@
 """Temporal-alignment embedding network: per-frame joint mixer + dilated
 temporal conv stack (a small TCN), skeleton [B, T, V, C] -> frame embeddings
-[B, T, D] float32, L2-normalized and masked, matched by soft-DTW."""
+[B, T, D] float32, L2-normalized and masked, matched by soft-DTW.  The
+trunk computes at `AlignConfig.dtype` (models/precision.py); the embedding
+layer and what follows are float32, so the soft-DTW kernels see float32."""
 
 from __future__ import annotations
 
@@ -10,6 +12,7 @@ from torch import nn
 
 from golfaction_tpu_torch.config import AlignConfig
 from golfaction_tpu_torch.models.gcn import LayerNorm
+from golfaction_tpu_torch.models.precision import compute_dtype, linear
 
 
 def _mask_bt(x: torch.Tensor, valid) -> torch.Tensor:
@@ -22,6 +25,7 @@ class AlignEncoder(nn.Module):
     def __init__(self, cfg: AlignConfig = AlignConfig()):
         super().__init__()
         self.cfg = cfg
+        self.dt = compute_dtype(cfg.dtype)
         h = cfg.hidden_channels
         self.mixer = nn.Linear(cfg.num_joints * cfg.in_channels, h[0])
         self.mixer_ln = LayerNorm(h[0])
@@ -39,15 +43,16 @@ class AlignEncoder(nn.Module):
 
     def forward(self, x, valid=None):
         B, T, V, C = x.shape
-        x = F.relu(self.mixer_ln(self.mixer(x.float().reshape(B, T, V * C))))
+        x = F.relu(self.mixer_ln(linear(self.mixer, x.to(self.dt).reshape(B, T, V * C))))
         k = self.cfg.temporal_kernel
         for i, (conv, ln, proj) in enumerate(zip(self.convs, self.lns, self.projs)):
             y = _mask_bt(x, valid).transpose(1, 2)              # [B, C, T]
             pad = (k - 1) * 2 ** i                              # flax SAME
-            y = conv(F.pad(y, (pad // 2, pad - pad // 2))).transpose(1, 2)
+            y = F.conv1d(F.pad(y, (pad // 2, pad - pad // 2)), conv.weight.to(y.dtype),
+                         dilation=2 ** i).transpose(1, 2)
             y = F.relu(ln(y))
-            x = proj(x) + y
-        emb = self.embed(x)
+            x = (x if isinstance(proj, nn.Identity) else linear(proj, x)) + y
+        emb = self.embed(x.float())                          # float32 (align.py:62)
         if self.cfg.normalize_embeddings:
             emb = emb / torch.linalg.norm(emb, dim=-1, keepdim=True).clamp(min=1e-6)
         return _mask_bt(emb, valid)

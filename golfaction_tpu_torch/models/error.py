@@ -4,7 +4,9 @@ Per-frame features of the clip-normalized, temporally smoothed skeleton
 (joint positions, velocities, joint angles and their velocities, optional
 deviations from a DTW-aligned reference swing, optional secondary-heatmap-
 mode or heatmap-spread features) are pooled per swing phase with the phase posteriors as soft
-weights, then an MLP emits one logit per fault (multi-label).
+weights, then an MLP emits one logit per fault (multi-label).  The features
+are float32; the MLP and the pooling compute at `ErrorConfig.dtype`
+(models/precision.py) and the last layer in float32.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from torch import nn
 
 from golfaction_tpu_torch.config import ErrorConfig
 from golfaction_tpu_torch.models.gcn import LayerNorm, normalize_skeleton_clip
+from golfaction_tpu_torch.models.precision import compute_dtype, linear
 
 # Angle triplets (a, vertex, b) over COCO-17 joints: elbows, knees,
 # shoulder and hip hinges on both sides.
@@ -91,6 +94,7 @@ class ErrorClassifier(nn.Module):
             raise ValueError("spread_features and mode_features are "
                              "mutually exclusive aux-channel semantics")
         self.cfg = cfg
+        self.dt = compute_dtype(cfg.dtype)
         self.fc0 = nn.Linear(feature_dim(cfg), cfg.hidden_dim)
         self.ln0 = LayerNorm(cfg.hidden_dim)
         self.fc1 = nn.Linear(cfg.num_phases * cfg.hidden_dim, cfg.hidden_dim)
@@ -161,12 +165,13 @@ class ErrorClassifier(nn.Module):
                     dir_exc = torch.sqrt((var_u - floor).clamp(min=0.0))
                 blocks.append(torch.cat([dir_exc, iso], dim=-1))
 
-        feat = F.relu(self.ln0(self.fc0(torch.cat(blocks, dim=-1))))
+        dt = self.dt
+        feat = F.relu(self.ln0(linear(self.fc0, torch.cat(blocks, dim=-1).to(dt))))
         # Soft per-phase pooling: weights = phase posterior, masked+normalized.
         w = torch.softmax(phase_logits.float(), dim=-1)
         if valid is not None:
             w = w * valid.float()[..., None]
         denom = w.sum(dim=1).clamp(min=1e-3)                  # [B, P]
-        pooled = torch.einsum("btp,btf->bpf", w, feat) / denom[..., None]
-        h = F.relu(self.ln1(self.fc1(pooled.reshape(B, -1))))
-        return self.fc2(h)
+        pooled = torch.einsum("btp,btf->bpf", w.to(dt), feat) / denom[..., None].to(dt)
+        h = F.relu(self.ln1(linear(self.fc1, pooled.reshape(B, -1))))
+        return self.fc2(h.float())                            # float32 (error.py:252)

@@ -15,9 +15,20 @@ Two forward paths compute the same function:
 
 Training (`.train()`) runs the plain chain with the live weights and the
 block dropout: the tail kernel is forward-only, as the TPU kernel it
-replaces.  Entering training mode drops what `prepare()` packed, so weights
-changed by training never meet a stale copy; `prepare()` runs again before
-the next fused forward.
+replaces.  `GCNConfig.dtype` sets the compute dtype of training, as the JAX
+trainers' flax chain honours it (models/precision.py).  Inference computes
+in float32 on both paths whatever the dtype says (reference behaviour
+(vii)): on the
+TPU the JAX program takes gcn_forward_pallas, which casts the input to
+float32 and runs float32 products (golfaction_tpu/ops/pallas/gcn_kernel.py:
+346-369; the tail reads float32, :65, 200, 327), and only the flax chain, on
+the JAX package's CPU path (golfaction_tpu/pipeline/orchestrator.py:404-410)
+and in its training, honours `dtype`.  The refiner's blocks are this chain
+at the refiner's own dtype.
+
+Entering training mode drops what `prepare()` packed, so weights changed by
+training never meet a stale copy; `prepare()` runs again before the next
+fused forward.
 """
 
 from __future__ import annotations
@@ -29,12 +40,14 @@ from torch import nn
 
 from golfaction_tpu_torch import graph
 from golfaction_tpu_torch.config import GCNConfig
+from golfaction_tpu_torch.models.precision import compute_dtype, linear, sigmoid
 from golfaction_tpu_torch.ops import gcn_tail
 from golfaction_tpu_torch.ops.gcn_tail import layer_norm
 
 
 class LayerNorm(nn.Module):
-    """LayerNorm over the last axis with flax's statistics (eps 1e-6)."""
+    """LayerNorm over the last axis with flax's statistics (eps 1e-6); a
+    lower-precision x is normalized in float32 and rounded back."""
 
     def __init__(self, n: int):
         super().__init__()
@@ -42,6 +55,8 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(n))
 
     def forward(self, x):
+        if x.dtype != torch.float32:
+            return layer_norm(x.float(), self.weight, self.bias).to(x.dtype)
         return layer_norm(x, self.weight, self.bias)
 
 
@@ -51,6 +66,13 @@ def _mask(x: torch.Tensor, valid) -> torch.Tensor:
         return x
     v = valid.to(x.dtype)
     return x * v.reshape(v.shape + (1,) * (x.dim() - 2))
+
+
+def _mean(x: torch.Tensor, dim) -> torch.Tensor:
+    """jnp.mean: a lower-precision x is summed and divided in float32."""
+    if x.dtype == torch.float32:
+        return x.mean(dim=dim)
+    return x.float().mean(dim=dim).to(x.dtype)
 
 
 class SpatialGraphConv(nn.Module):
@@ -75,7 +97,7 @@ class SpatialGraphConv(nn.Module):
     def forward(self, x):
         B, T, V, C = x.shape
         w = self._wbig if self._wbig is not None else self.wbig()
-        return (x.reshape(B, T, V * C) @ w).reshape(B, T, V, -1)
+        return (x.reshape(B, T, V * C) @ w.to(x.dtype)).reshape(B, T, V, -1)
 
 
 class MultiBranchTemporalConv(nn.Module):
@@ -99,15 +121,15 @@ class MultiBranchTemporalConv(nn.Module):
         x = _mask(x, valid)
         outs = []
         for i, (k, d) in enumerate(self.branches):
-            b = _mask(F.relu(self.ln[i](self.dense[i](x))), valid)
+            b = _mask(F.relu(self.ln[i](linear(self.dense[i], x))), valid)
             ch = b.shape[-1]
             seq = b.permute(0, 2, 3, 1).reshape(B * V, ch, T)
             pad = d * (k - 1)
             seq = F.pad(seq, (pad // 2, pad - pad // 2))
-            seq = self.conv[i](seq)
+            seq = F.conv1d(seq, self.conv[i].weight.to(seq.dtype), dilation=d, groups=ch)
             outs.append(seq.reshape(B, V, ch, T).permute(0, 3, 1, 2))
         nb = len(self.branches)
-        mp = _mask(self.ln[nb](self.dense[nb](x)), valid)
+        mp = _mask(self.ln[nb](linear(self.dense[nb], x)), valid)
         if valid is not None:
             v = valid.to(mp.dtype)[..., None, None]
             mp = mp + (1.0 - v) * -1e4
@@ -131,11 +153,11 @@ class ChannelAtt(nn.Module):
     def forward(self, x, valid=None):
         B, T, V, C = x.shape
         if valid is None:
-            s = x.mean(dim=(1, 2))
+            s = _mean(x, (1, 2))
         else:
-            denom = valid.float().sum(1).clamp(min=1.0) * V
+            denom = valid.to(x.dtype).sum(1).clamp(min=1.0) * V
             s = _mask(x, valid).sum(dim=(1, 2)) / denom[:, None]
-        g = torch.sigmoid(self.fc2(F.relu(self.fc1(s))))
+        g = sigmoid(linear(self.fc2, F.relu(linear(self.fc1, s))))
         return x * g[:, None, None, :]
 
 
@@ -152,15 +174,15 @@ class STJointAtt(nn.Module):
 
     def forward(self, x, valid=None):
         xm = _mask(x, valid)
-        t_pool = xm.mean(dim=2)
+        t_pool = _mean(xm, 2)
         if valid is None:
-            v_pool = xm.mean(dim=1)
+            v_pool = _mean(xm, 1)
         else:
-            v_pool = xm.sum(dim=1) / valid.float().sum(1).clamp(min=1.0)[:, None, None]
-        t_emb = torch.clamp(self.norm(self.fused(t_pool)), -1.0, 1.0)
-        v_emb = torch.clamp(self.norm(self.fused(v_pool)), -1.0, 1.0)
-        t_gate = torch.sigmoid(self.t_fc(t_emb))
-        v_gate = torch.sigmoid(self.v_fc(v_emb))
+            v_pool = xm.sum(dim=1) / valid.to(x.dtype).sum(1).clamp(min=1.0)[:, None, None]
+        t_emb = torch.clamp(self.norm(linear(self.fused, t_pool)), -1.0, 1.0)
+        v_emb = torch.clamp(self.norm(linear(self.fused, v_pool)), -1.0, 1.0)
+        t_gate = sigmoid(linear(self.t_fc, t_emb))
+        v_gate = sigmoid(linear(self.v_fc, v_emb))
         return x * t_gate[:, :, None, :] * v_gate[:, None, :, :]
 
 
@@ -211,7 +233,7 @@ class GCNBlock(nn.Module):
             y = self.mbtc(y, valid)
             y = self.ca(y, valid)
             z = self.stja(y, valid)
-        residual = x if self.proj is None else self.proj(x)
+        residual = x if self.proj is None else linear(self.proj, x)
         z = z + residual
         if dropout > 0:
             keep = torch.rand(z.shape, generator=generator, device=z.device) >= dropout
@@ -223,14 +245,15 @@ class ActionSegmentationGCN(nn.Module):
     """skeletons [B, T, V, C_in] (normalized), valid [B, T] -> phase logits
     [B, T, num_phases] float32.
 
-    A new model is in eval mode (inference is the default use); `.train()`
-    enters training mode, where `forward` takes the plain chain and draws
-    the block dropout from `generator` (a torch.Generator on the model's
-    device)."""
+    A new model is in eval mode (inference is the default use), where both
+    paths compute in float32; `.train()` enters training mode, where
+    `forward` takes the plain chain at cfg.dtype and draws the block dropout
+    from `generator` (a torch.Generator on the model's device)."""
 
     def __init__(self, cfg: GCNConfig = GCNConfig()):
         super().__init__()
         self.cfg = cfg
+        self.dt = compute_dtype(cfg.dtype)
         A = graph.build_adjacency(cfg.graph_strategy)
         blocks, cin = [], cfg.in_channels
         for ch in cfg.block_channels:
@@ -257,21 +280,21 @@ class ActionSegmentationGCN(nn.Module):
             blk.tail = blk.pack().to(blk.sgc.kernel.device)
 
     def forward(self, x, valid, fused: bool = True, generator=None):
-        dropout = 0.0
+        dropout, dt = 0.0, torch.float32
         if self.training:
-            fused = False
+            fused, dt = False, self.dt
             dropout = self.cfg.dropout
             if dropout > 0 and generator is None:
                 raise ValueError("training with dropout needs an explicit torch.Generator")
         if fused and self.blocks[0].tail is None:
             raise RuntimeError("ActionSegmentationGCN.prepare() must run before "
                                "the fused forward")
-        h = x.float()
+        h = x.to(dt)
         la = valid.sum(1).to(torch.int32).contiguous() if fused else None
         for blk in self.blocks:
             h = blk(h, valid, la=la, fused=fused, dropout=dropout, generator=generator)
-        feat = F.relu(self.head0(h.mean(dim=2)))
-        return self.head1(feat)
+        feat = F.relu(linear(self.head0, _mean(h, 2)))
+        return self.head1(feat.float())              # float32 logits (gcn.py:231)
 
 
 def _torso(kpts: torch.Tensor):

@@ -5,6 +5,10 @@ heatmap per COCO-17 joint.  Input crops are NHWC like the JAX package's;
 the convolutions run NCHW.  Padding reproduces flax's "SAME" rule
 (pad_total = max((ceil(n/s) - 1) * s + k - n, 0), low side gets the
 floor half), and GroupNorm uses flax's epsilon 1e-6.
+
+`PoseConfig.dtype` sets the compute dtype as flax's does
+(models/precision.py); the heatmaps come out float32 either way, so the
+decode sees float32.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from golfaction_tpu_torch.config import PoseConfig
+from golfaction_tpu_torch.models.precision import GroupNorm, compute_dtype
 
 _GN_EPS = 1e-6
 
@@ -33,14 +38,41 @@ def _pad_same(x: torch.Tensor, k: int, s: int, value: float = 0.0) -> torch.Tens
 
 
 class SameConv2d(nn.Conv2d):
-    """Conv2d with flax SAME padding (square kernel)."""
+    """Bias-free Conv2d with flax SAME padding (square kernel), at x's dtype."""
+
+    def __init__(self, cin: int, cout: int, k: int, stride: int = 1):
+        super().__init__(cin, cout, k, stride, bias=False)
 
     def forward(self, x):
-        return super().forward(_pad_same(x, self.kernel_size[0], self.stride[0]))
+        return self._conv_forward(_pad_same(x, self.kernel_size[0], self.stride[0]),
+                                  self.weight.to(x.dtype), None)
 
 
-def _gn(ch: int) -> nn.GroupNorm:
-    return nn.GroupNorm(min(32, ch), ch, eps=_GN_EPS)
+class Deconv2d(nn.ConvTranspose2d):
+    """Bias-free 4x4 stride-2 transposed conv (flax SAME), at x's dtype."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__(cin, cout, 4, 2, padding=1, bias=False)
+
+    def forward(self, x):
+        return F.conv_transpose2d(x, self.weight.to(x.dtype), stride=2, padding=1)
+
+
+class Project(nn.Conv2d):
+    """The 1x1 heatmap projection at x's dtype; below float32 the bias is
+    added after the product's rounding, as flax adds it."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__(cin, cout, 1)
+
+    def forward(self, x):
+        if x.dtype == torch.float32:
+            return super().forward(x)
+        return F.conv2d(x, self.weight.to(x.dtype)) + self.bias.to(x.dtype)[:, None, None]
+
+
+def _gn(ch: int) -> GroupNorm:
+    return GroupNorm(min(32, ch), ch, eps=_GN_EPS)
 
 
 class ResBlock(nn.Module):
@@ -48,13 +80,13 @@ class ResBlock(nn.Module):
 
     def __init__(self, cin: int, channels: int, stride: int = 1):
         super().__init__()
-        self.conv1 = SameConv2d(cin, channels, 3, stride, bias=False)
+        self.conv1 = SameConv2d(cin, channels, 3, stride)
         self.gn1 = _gn(channels)
-        self.conv2 = SameConv2d(channels, channels, 3, 1, bias=False)
+        self.conv2 = SameConv2d(channels, channels, 3)
         self.gn2 = _gn(channels)
         self.proj = None
         if cin != channels or stride != 1:
-            self.proj = SameConv2d(cin, channels, 1, stride, bias=False)
+            self.proj = SameConv2d(cin, channels, 1, stride)
             self.gn3 = _gn(channels)
 
     def forward(self, x):
@@ -71,8 +103,9 @@ class PoseNet(nn.Module):
     def __init__(self, cfg: PoseConfig = PoseConfig()):
         super().__init__()
         self.cfg = cfg
-        self.stem = SameConv2d(3 * cfg.in_frames, 64, 7, 2, bias=False)
-        self.gn0 = nn.GroupNorm(32, 64, eps=_GN_EPS)
+        self.dt = compute_dtype(cfg.dtype)
+        self.stem = SameConv2d(3 * cfg.in_frames, 64, 7, 2)
+        self.gn0 = _gn(64)
         blocks, cin = [], 64
         for i, (nb, ch) in enumerate(zip(cfg.stage_blocks, cfg.stage_channels)):
             for b in range(nb):
@@ -90,21 +123,22 @@ class PoseNet(nn.Module):
         head += [cfg.deconv_channels[-1]] * n_extra
         deconvs, gns = [], []
         for i, ch in enumerate(head):
-            deconvs.append(nn.ConvTranspose2d(cin, ch, 4, 2, padding=1, bias=False))
+            deconvs.append(Deconv2d(cin, ch))
             # The extra deconvs' GroupNorm always takes 32 groups.
             gns.append(_gn(ch) if i < len(cfg.deconv_channels)
-                       else nn.GroupNorm(32, ch, eps=_GN_EPS))
+                       else GroupNorm(32, ch, eps=_GN_EPS))
             cin = ch
         self.deconvs = nn.ModuleList(deconvs)
         self.dgns = nn.ModuleList(gns)
-        self.final = nn.Conv2d(cin, cfg.num_joints, 1)
+        self.final = Project(cin, cfg.num_joints)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.float().permute(0, 3, 1, 2)
+        x = x.to(self.dt).permute(0, 3, 1, 2)
         x = F.relu(self.gn0(self.stem(x)))
         x = F.max_pool2d(_pad_same(x, 3, 2, float("-inf")), 3, 2)
         for blk in self.blocks:
             x = blk(x)
         for d, g in zip(self.deconvs, self.dgns):
             x = F.relu(g(d(x)))
+        # float32 heatmaps for the decode (golfaction_tpu/models/pose.py:110-111).
         return self.final(x).float()

@@ -34,9 +34,12 @@ PyTorch has no integer convolution on CUDA, and a float32 one is not exact:
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
+from golfaction_tpu_torch.models import precision
 from golfaction_tpu_torch.models.pose import PoseNet, _same_pads
 from golfaction_tpu_torch.ops import requant
 
@@ -200,14 +203,8 @@ def max_pool_i8(x_i8: torch.Tensor, k: int = 3, stride: int = 2):
 # Floating-point pieces between the integer convolutions
 # ---------------------------------------------------------------------------
 
-def _gn16(x: torch.Tensor, gn: torch.nn.GroupNorm) -> torch.Tensor:
-    """GroupNorm of bfloat16 x [N, H, W, C] as flax computes it with
-    dtype=bfloat16: statistics and arithmetic in float32, the result rounded
-    to bfloat16."""
-    G = _groups(x.shape[-1])
-    xg, mu, rstd = requant.group_stats(x.float(), G)
-    out = (xg - mu) * (rstd * gn.weight.reshape(1, 1, G, -1)) + gn.bias.reshape(1, 1, G, -1)
-    return out.reshape(x.shape).to(torch.bfloat16)
+# GroupNorm of bfloat16 channels-last x as flax computes it with dtype=bfloat16.
+_gn16 = functools.partial(precision.group_norm, channels_last=True)
 
 
 def _dequant16(y_i32, sx: float, s_w):

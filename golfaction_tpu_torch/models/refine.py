@@ -6,7 +6,8 @@ ground-truth) keypoint-sequence pairs can learn the inverse mapping from
 skeletal structure, temporal context and the decoder's per-joint confidence.
 
 The refiner reuses the GCN trunk blocks (their plain module chain) at its own
-narrow widths and adds a clipped per-joint residual.  Opt-in:
+narrow widths, at `RefineConfig.dtype` (models/precision.py), and adds a
+clipped per-joint residual computed in float32.  Opt-in:
 `RefineConfig.enabled`; the pipeline applies it only when its params carry a
 "refine" entry.
 """
@@ -19,6 +20,7 @@ from torch import nn
 from golfaction_tpu_torch import graph
 from golfaction_tpu_torch.config import GCNConfig, RefineConfig
 from golfaction_tpu_torch.models.gcn import GCNBlock, normalize_skeleton_clip
+from golfaction_tpu_torch.models.precision import compute_dtype
 
 
 class KeypointRefiner(nn.Module):
@@ -30,6 +32,7 @@ class KeypointRefiner(nn.Module):
     def __init__(self, cfg: RefineConfig = RefineConfig()):
         super().__init__()
         self.cfg = cfg
+        self.dt = compute_dtype(cfg.dtype)
         gcfg = GCNConfig(temporal_branches=cfg.temporal_branches,
                          channel_att_reduction=cfg.channel_att_reduction, dropout=0.0,
                          dtype=cfg.dtype)
@@ -48,9 +51,10 @@ class KeypointRefiner(nn.Module):
         # Clip-mean mid-hip center and masked mean torso scale: per-frame
         # centering would erase the drift the refiner must keep.
         x, scale = normalize_skeleton_clip(kpts, valid, return_scale=True)
+        x = x.to(self.dt)
         for blk in self.blocks:
             x = blk(x, valid)
-        delta = self.head(x).clamp(-self.cfg.max_residual, self.cfg.max_residual)
+        delta = self.head(x.float()).clamp(-self.cfg.max_residual, self.cfg.max_residual)
         xy = kpts[..., :2] + delta * scale[..., None, None, None]
         out = torch.cat([xy, kpts[..., 2:]], dim=-1)
         if valid is not None:

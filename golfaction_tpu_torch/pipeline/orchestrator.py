@@ -19,7 +19,9 @@ CUDA device that is not there raises.
 from __future__ import annotations
 
 import concurrent.futures as cf
+import functools
 import os
+import time
 from typing import Optional, Sequence, Union
 
 import numpy as np
@@ -27,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from golfaction_tpu_torch import checkpoint, types, weights
-from golfaction_tpu_torch.config import PipelineConfig, get_config
+from golfaction_tpu_torch.config import PipelineConfig, apply_overrides, get_config
 from golfaction_tpu_torch.models.align import AlignEncoder
 from golfaction_tpu_torch.models.error import ErrorClassifier
 from golfaction_tpu_torch.models.gcn import ActionSegmentationGCN, normalize_skeleton
@@ -81,6 +83,8 @@ class Pipeline:
         for m in self.models.values():
             m.to(self.device).eval()
         self.gcn_model.prepare()
+        self.last_batch_stats: Optional[dict] = None
+        self.last_copy_ms: list = []
         self.error_thresholds = None
         if error_thresholds is not None:
             self.error_thresholds = torch.as_tensor(
@@ -88,11 +92,13 @@ class Pipeline:
 
     @classmethod
     def from_artifacts(cls, root: str = "artifacts", preset: str = "full_pipeline",
-                       device="cuda") -> "Pipeline":
-        """The shipped model: config adapted to the tree (pose_meta.json, the
-        checkpoints' shapes), weights from `<root>/params/*.npz`, per-fault
-        thresholds from error_thresholds.json."""
-        cfg = checkpoint.config_for_artifacts(get_config(preset), root)
+                       device="cuda", overrides: Sequence[str] = ()) -> "Pipeline":
+        """The shipped model: the preset with `overrides` (config.apply_overrides
+        syntax) adapted to the tree (pose_meta.json, the checkpoints'
+        shapes), weights from `<root>/params/*.npz`, per-fault thresholds
+        from error_thresholds.json."""
+        cfg = apply_overrides(get_config(preset), list(overrides))
+        cfg = checkpoint.config_for_artifacts(cfg, root)
         params = weights.from_flax(checkpoint.load_params(root))
         return cls(cfg, params, device=device,
                    error_thresholds=checkpoint.load_error_thresholds(root))
@@ -280,9 +286,14 @@ class Pipeline:
         return out
 
     def _thresholds(self, error_threshold):
-        if error_threshold is not None:
+        """A scalar, or per-fault thresholds [NUM_ERRORS] (array or tensor)
+        as a tensor on the device; None: the pipeline's own, else 0.5."""
+        if error_threshold is None:
+            return self.error_thresholds if self.error_thresholds is not None else 0.5
+        if isinstance(error_threshold, (int, float)):
             return error_threshold
-        return self.error_thresholds if self.error_thresholds is not None else 0.5
+        return torch.as_tensor(types.to_numpy(error_threshold).astype(np.float32),
+                               device=self.device)
 
     @torch.inference_mode()
     def analyze(self, video: Union[str, np.ndarray], boxes: Optional[np.ndarray] = None,
@@ -316,47 +327,96 @@ class Pipeline:
     def analyze_batch(self, videos: Sequence[Union[str, np.ndarray]],
                       boxes: Optional[Sequence[np.ndarray]] = None,
                       reference: Optional[types.Skeleton] = None,
-                      error_threshold=None) -> list:
-        """Analyze many clips: a thread pool decodes and prepares clips while
-        the main thread runs each chunk of up to `clip_batch` same-bucket
-        clips as one batch.  With `reference`, every clip is aligned against
-        it in one batched alignment per chunk.
+                      error_threshold=None, decode_workers: Optional[int] = None) -> list:
+        """Analyze many clips: a `decode_workers`-thread pool decodes and
+        prepares clips while the main thread runs each chunk of up to
+        `clip_batch` same-bucket clips as one batch.  With `reference`, every
+        clip is aligned against it in one batched alignment per chunk.
+
+        On the card the frames go through pinned host staging (a ring of
+        clip-sized slots, `_Stager`) and a copy stream, one chunk ahead: a
+        chunk's copy is started before the previous chunk's programs run,
+        and the compute stream waits on the copy's event.  At most two
+        chunks' frames are on the card at once.  Per-call telemetry lands
+        in `last_batch_stats` (the JAX package's keys) and, on the card, the
+        copy's milliseconds per chunk by CUDA events in `last_copy_ms`.
 
         A clip that fails decode or preparation yields its Exception at its
-        index instead of an AnalysisResult; the others go on.
+        index instead of an AnalysisResult; the others go on.  Chunk
+        membership follows decode-completion order.  A clip's outputs do
+        not depend on which clips share its chunk, but they may differ in
+        the last bits with the chunk's size: cuDNN may take other
+        algorithms at another batch size.
         """
+        t_start = time.perf_counter()
         n_vids = len(videos)
         prepared: list = [None] * n_vids
         failures: dict[int, Exception] = {}
+        decode_s = [0.0] * n_vids
+        first_dispatch = [None]
         cb = max(1, self.cfg.clip_batch)
         outs: dict[int, dict] = {}
         thr = self._thresholds(error_threshold)
         ref = None
         if reference is not None:
             ref = (reference.keypoints.to(self.device), reference.valid.to(self.device))
+        stager = _Stager(self.device) if self.device.type == "cuda" else None
+        uploads: list = []       # (chunk, frames future) submitted, not yet computed
+        done: list = []          # each computed chunk's completion event
 
         def _decode(i):
+            t0 = time.perf_counter()
             v = videos[i]
             frames = video_io.load_video(v)[0] if isinstance(v, str) else np.asarray(v)
-            return self._prepare(frames, None if boxes is None else boxes[i])
+            p = self._prepare(frames, None if boxes is None else boxes[i])
+            decode_s[i] = time.perf_counter() - t0
+            return p
 
-        def _dispatch(chunk):
-            valid = self._to_device([prepared[i][2] for i in chunk])
-            out = self._core_fn(self._to_device([prepared[i][0] for i in chunk]),
-                                self._to_device([prepared[i][1] for i in chunk]), valid)
+        def _upload(chunk, after):
+            fr = [prepared[i][0] for i in chunk]
+            if stager is None:
+                frames = self._to_device(fr)
+            else:
+                frames = stager.upload(fr, after)
             for i in chunk:       # release the decoded host frames
-                prepared[i] = (None, None, prepared[i][2])
+                prepared[i] = (None, prepared[i][1], prepared[i][2])
+            return frames
+
+        def _compute(chunk, fut):
+            frames = fut.result()
+            if stager is not None:
+                frames = stager.claim(frames)
+            valid = self._to_device([prepared[i][2] for i in chunk])
+            out = self._core_fn(frames, self._to_device([prepared[i][1] for i in chunk]), valid)
             if ref is not None:
                 a = self._align_batch_fn(out["keypoints"], valid, ref[0], ref[1],
                                          out["phase_logits"], out.get("kpt_aux"))
                 out["alignment"] = a
                 out["error_logits"] = a["error_logits"]
+            if stager is not None:
+                done.append(stager.record_done())
             for n, i in enumerate(chunk):
                 outs[i] = _index(out, n)
 
+        def _dispatch(chunk):
+            if first_dispatch[0] is None:
+                first_dispatch[0] = time.perf_counter() - t_start
+            # Chunk k's copy starts before chunk k-1's programs run; it waits
+            # for chunk k-2's (done[-1]) to finish: two chunks' frames at most.
+            after = done[-1] if done else None
+            if stager is None:
+                fut = cf.Future()
+                fut.set_result(_upload(chunk, None))
+            else:
+                fut = copier.submit(_upload, chunk, after)
+            uploads.append((chunk, fut))
+            if len(uploads) > 1:
+                _compute(*uploads.pop(0))
+
         pending: dict[int, list[int]] = {}   # bucket length -> ready clips
-        workers = min(4, os.cpu_count() or 1, n_vids or 1)
-        with cf.ThreadPoolExecutor(max_workers=workers) as ex:
+        workers = decode_workers or min(4, os.cpu_count() or 1, n_vids or 1)
+        with cf.ThreadPoolExecutor(max_workers=workers) as ex, \
+                cf.ThreadPoolExecutor(max_workers=1) as copier:
             futs = {ex.submit(_decode, i): i for i in range(n_vids)}
             for fut in cf.as_completed(futs):
                 i = futs[fut]
@@ -369,10 +429,22 @@ class Pipeline:
                 pending.setdefault(tb, []).append(i)
                 if len(pending[tb]) == cb:
                     _dispatch(pending.pop(tb))
-        for tb in sorted(pending):
-            idxs = pending[tb]
-            for c0 in range(0, len(idxs), cb):
-                _dispatch(idxs[c0:c0 + cb])
+            for tb in sorted(pending):
+                idxs = pending[tb]
+                for c0 in range(0, len(idxs), cb):
+                    _dispatch(idxs[c0:c0 + cb])
+            while uploads:
+                _compute(*uploads.pop(0))
+        if stager is not None:
+            self.last_copy_ms = stager.copy_ms()
+        self.last_batch_stats = {
+            "wall_s": time.perf_counter() - t_start,
+            "decode_s_total": sum(decode_s),
+            "decode_workers": workers,
+            "first_dispatch_s": first_dispatch[0],
+            "clips": n_vids,
+            "failures": len(failures),
+        }
 
         results: list = []
         for i, p in enumerate(prepared):
@@ -395,6 +467,95 @@ class Pipeline:
 
     def extract_skeleton(self, result: types.AnalysisResult) -> types.Skeleton:
         return types.Skeleton(keypoints=result.keypoints, valid=result.valid)
+
+
+class _Stager:
+    """Copies clips to the card through pinned host staging on a side stream.
+
+    The pinned memory is a ring of SLOTS clip-sized buffers, each reused
+    once the copy out of it has finished (its event), so it stays at SLOTS
+    clips whatever the number of chunks.  `upload` runs on a copy thread:
+    each clip is copied into a slot on the host, then to the card on the
+    copy stream; the main thread `claim`s the batch, which makes the compute
+    stream wait on the copy's event."""
+
+    SLOTS = 2
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+        self.ring: list = [(None, None)] * self.SLOTS
+        self.next = 0
+        self.timing: list = []          # (start, end) CUDA events a chunk
+
+    def _slot(self, nbytes: int):
+        buf, ev = self.ring[self.next]
+        if ev is not None:
+            ev.synchronize()            # the copy out of this slot has finished
+        if buf is None or buf.numel() < nbytes:
+            buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        ev = torch.cuda.Event()
+        self.ring[self.next] = (buf, ev)
+        self.next = (self.next + 1) % len(self.ring)
+        return buf, ev
+
+    def upload(self, arrays: Sequence[np.ndarray], after=None):
+        """Same-shaped host arrays -> (device batch [n, ...], copy-done event).
+        `after`: an event to wait for on the host before the batch is
+        allocated (the chunk whose frames must leave the card first)."""
+        first = torch.from_numpy(np.ascontiguousarray(arrays[0]))
+        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+            if after is not None:
+                after.synchronize()
+            out = torch.empty((len(arrays), *first.shape), dtype=first.dtype,
+                              device=self.device)
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record(self.stream)
+            for slot, a in zip(out, arrays):
+                src = torch.from_numpy(np.ascontiguousarray(a))
+                nbytes = src.numel() * src.element_size()
+                buf, ev = self._slot(nbytes)
+                host = buf[:nbytes].view(src.dtype).view(src.shape)
+                host.copy_(src)
+                slot.copy_(host, non_blocking=True)
+                ev.record(self.stream)
+            end.record(self.stream)
+        self.timing.append((start, end))
+        return out, end
+
+    def claim(self, uploaded) -> torch.Tensor:
+        """The uploaded batch, ordered after its copy on the compute stream."""
+        frames, ready = uploaded
+        stream = torch.cuda.current_stream(self.device)
+        stream.wait_event(ready)
+        frames.record_stream(stream)
+        return frames
+
+    def record_done(self) -> torch.cuda.Event:
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
+
+    def copy_ms(self) -> list:
+        """Milliseconds of each chunk's copy stream, first copy to last."""
+        out = []
+        for start, end in self.timing:
+            end.synchronize()
+            out.append(start.elapsed_time(end))
+        return out
+
+
+@functools.lru_cache(maxsize=4)
+def _default_pipeline(preset: str, device: str) -> Pipeline:
+    return Pipeline(get_config(preset), device=device)
+
+
+def analyze(video, boxes=None, reference=None, preset: str = "full_pipeline",
+            device="cuda") -> types.AnalysisResult:
+    """Module-level convenience: analyze one clip with a cached Pipeline of
+    the preset (random weights from seed 0, as the JAX package's)."""
+    return _default_pipeline(preset, str(device)).analyze(video, boxes=boxes,
+                                                          reference=reference)
 
 
 def _index(tree, n):

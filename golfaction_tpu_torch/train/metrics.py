@@ -8,6 +8,7 @@ import numpy as np
 import torch
 
 from golfaction_tpu_torch import config as cfg_mod
+from golfaction_tpu_torch.types import to_numpy
 
 
 def pck(pred_kpts, gt_kpts, bbox_size, alpha: float = 0.05, mask=None):
@@ -84,16 +85,12 @@ def error_detection_metrics(probs, flags, threshold: float = 0.5):
     return {"precision": precision, "recall": recall, "f1": f1}
 
 
-def _to_numpy(a) -> np.ndarray:
-    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
-
-
 def error_detection_per_fault(probs, flags, threshold=0.5):
     """Per-fault precision/recall/F1 breakdown.  threshold: scalar or [E]
     per-fault array.  Returns {fault_name: {precision, recall, f1, support}}."""
-    probs = _to_numpy(probs)
-    flags = _to_numpy(flags) > 0.5
-    thr = np.broadcast_to(np.asarray(_to_numpy(threshold), np.float32), (probs.shape[-1],))
+    probs = to_numpy(probs)
+    flags = to_numpy(flags) > 0.5
+    thr = np.broadcast_to(np.asarray(to_numpy(threshold), np.float32), (probs.shape[-1],))
     out = {}
     for e, name in enumerate(cfg_mod.SWING_ERRORS):
         pred = probs[:, e] > thr[e]
@@ -120,8 +117,8 @@ def calibrate_error_thresholds(probs, truth, log=None):
     held-out precision — and ties break toward the HIGHER threshold
     (precision bias).
     """
-    probs = _to_numpy(probs)
-    truth = _to_numpy(truth)
+    probs = to_numpy(probs)
+    truth = to_numpy(truth)
     grid = np.linspace(0.20, 0.90, 15)
     thresholds = {}
     for e, fault in enumerate(cfg_mod.SWING_ERRORS):

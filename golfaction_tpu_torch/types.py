@@ -12,7 +12,15 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
+
+
+def to_numpy(x) -> np.ndarray:
+    """A tensor (on any device) or array-like -> a host numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
 
 
 @dataclasses.dataclass

@@ -5,8 +5,10 @@ without one; run them on a machine with the card:
 
     python -m pytest tests/test_torch_kernels_cuda.py -q
 
-float32 throughout, with TF32 off for matmuls and convolutions, so the
-tolerances only absorb reduction order.
+float32 throughout (the configs pin dtype="float32", the dtype their limits
+were set for), with TF32 off for matmuls and convolutions, so the
+tolerances only absorb reduction order; the bfloat16 tests at the end say
+their own limits.
 """
 
 import ctypes
@@ -403,7 +405,7 @@ def test_kernels_refuse_bad_inputs(dev):
                                 torch.ones((1,), dtype=torch.int64, device=dev), tail)
 
 
-def _small_cfg(decode_tracking: int = 0):
+def _small_cfg(decode_tracking: int = 0, dtype: str = "float32", clip_batch: int = 8):
     # Single-peak decode by default: random weights on noise frames give
     # heatmaps whose modes nearly tie, and a tracked decode turns float noise
     # in them into jumps between modes (test_tracked_decode_gap_is_heatmap_noise).
@@ -412,11 +414,13 @@ def _small_cfg(decode_tracking: int = 0):
     return tcfg.PipelineConfig(
         pose=tcfg.PoseConfig(input_hw=(64, 48), heatmap_hw=(16, 12), stage_blocks=(1, 1, 1),
                              stage_channels=(8, 16, 32), deconv_channels=(16, 16),
-                             decode_tracking=decode_tracking, track_suppress_radius=2.0),
-        gcn=tcfg.GCNConfig(block_channels=(16, 32), temporal_branches=((3, 1), (3, 2))),
-        align=tcfg.AlignConfig(embed_dim=16, hidden_channels=(8, 16)),
-        error=tcfg.ErrorConfig(hidden_dim=32),
-        frame_batch=8, length_buckets=(16, 32))
+                             decode_tracking=decode_tracking, track_suppress_radius=2.0,
+                             dtype=dtype),
+        gcn=tcfg.GCNConfig(block_channels=(16, 32), temporal_branches=((3, 1), (3, 2)),
+                           dtype=dtype),
+        align=tcfg.AlignConfig(embed_dim=16, hidden_channels=(8, 16), dtype=dtype),
+        error=tcfg.ErrorConfig(hidden_dim=32, dtype=dtype),
+        frame_batch=8, length_buckets=(16, 32), clip_batch=clip_batch)
 
 
 def test_tracked_decode_gap_is_heatmap_noise(dev):
@@ -509,7 +513,8 @@ def test_shipped_pipeline_on_card_matches_cpu(dev):
 
     pipes = {}
     for name in ("cpu", "cuda"):
-        pipes[name] = Pipeline.from_artifacts(str(ROOT / "artifacts"), device=name)
+        pipes[name] = Pipeline.from_artifacts(str(ROOT / "artifacts"), device=name,
+                                              overrides=chip_smoke.FLOAT32)
         assert pipes[name].cfg.pose.decode_tracking == 4 and pipes[name].cfg.error.mode_features
     card, hm_card = run(pipes["cuda"])
     cpu, hm_cpu = run(pipes["cpu"])
@@ -756,3 +761,70 @@ def test_fused_int8_forward_on_card_runs_kernel_f_at_every_site(dev):
     for fn in (pq.pose_forward_int8, pq.pose_forward_int8_mixed):
         out = fn(model, qw, scales, x)
         assert bool(torch.isfinite(out).all()) and tuple(out.shape) == (4, 17, 16, 12)
+
+
+def test_overlapped_batch_equals_one_chunk_calls(dev):
+    """analyze_batch over three chunks (pinned staging, the copy on a side
+    stream one chunk ahead) equals the same clips run as three one-chunk
+    calls, to the bit, with deterministic cuDNN; the telemetry has the JAX
+    package's keys and one copy time a chunk."""
+    import chip_smoke
+
+    rng = np.random.default_rng(11)
+    # One bucket, so each chunk of the 3-chunk call holds two clips as each
+    # one-chunk call does (another batch size may take other algorithms).
+    clips = [rng.integers(0, 256, (14, 96, 128, 3), dtype=np.uint8) for _ in range(2)]
+    ref = Skeleton(keypoints=torch.from_numpy(np.concatenate(
+        [rng.uniform(20, 100, (16, 17, 2)), rng.uniform(0.2, 1.0, (16, 17, 1))],
+        -1).astype(np.float32)).to(dev), valid=torch.ones(16, dtype=torch.bool, device=dev))
+    pipe = Pipeline(_small_cfg(clip_batch=2), device="cuda", seed=0)
+    torch.backends.cudnn.deterministic = True
+    try:
+        whole = pipe.analyze_batch(clips * 3, reference=ref, decode_workers=1)
+        copy_ms, stats = pipe.last_copy_ms, pipe.last_batch_stats
+        parts = [r for _ in range(3) for r in pipe.analyze_batch(clips, reference=ref)]
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert chip_smoke.differing_fields([whole, parts]) == []
+    assert len(copy_ms) == 3 and all(ms > 0 for ms in copy_ms)
+    assert set(stats) == {"wall_s", "decode_s_total", "decode_workers", "first_dispatch_s",
+                          "clips", "failures"} and stats["clips"] == 6
+
+
+@pytest.mark.parametrize("in_frames", [1, 3])
+def test_bfloat16_models_on_card_match_cpu(dev, in_frames):
+    """The models at dtype="bfloat16" on the card against the CPU, the same
+    weights and inputs, at the caps the CPU is held to against flax
+    (tests/test_torch_dtype.py): heatmaps within 5e-2 (mean 5e-3) of the
+    largest value, error logits within 5e-2, embeddings rel 2e-2; the GCN's
+    inference is float32 on both, within 1e-3."""
+    import dataclasses
+
+    cfg = _small_cfg(decode_tracking=4, dtype="bfloat16")
+    cfg = dataclasses.replace(cfg, pose=dataclasses.replace(cfg.pose, in_frames=in_frames))
+    gen = torch.Generator().manual_seed(3)
+    crops = torch.randn((6, 64, 48, 3 * in_frames), generator=gen)
+    sk = torch.randn((2, 16, 17, 3), generator=gen)
+    kp = torch.rand((2, 16, 17, 3), generator=gen) * 100
+    valid = torch.arange(16)[None] < torch.tensor([[16], [11]])
+    logits = torch.randn((2, 16, 9), generator=gen)
+    out = {}
+    with torch.inference_mode():
+        for name in ("cpu", "cuda"):
+            p = Pipeline(cfg, device=name, seed=0)
+            d = p.device
+            res = {"heatmaps": p.pose_model(crops.to(d)),
+                   "phase_logits": p.gcn_model(sk.to(d), valid.to(d)),
+                   "error_logits": p.error_model(kp.to(d), logits.to(d), valid.to(d),
+                                                 kp.to(d) + 1.0),
+                   "embeddings": p.align_model(sk.to(d), valid.to(d))}
+            out[name] = {k: v.float().cpu() for k, v in res.items()}
+    c, g = out["cpu"], out["cuda"]
+    peak = float(c["heatmaps"].abs().max())
+    gap = (g["heatmaps"] - c["heatmaps"]).abs()
+    assert float(gap.max()) <= 5e-2 * peak and float(gap.mean()) <= 5e-3 * peak
+    m = valid[..., None]
+    assert float(((g["phase_logits"] - c["phase_logits"]) * m).abs().max()) <= 1e-3
+    assert float((g["error_logits"] - c["error_logits"]).abs().max()) <= 5e-2
+    assert float((g["embeddings"] - c["embeddings"]).norm()) <= 2e-2 * float(
+        c["embeddings"].norm())
