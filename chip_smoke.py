@@ -21,8 +21,10 @@ Phases (each prints one line; any failure exits non-zero):
                with a reference, on 64-frame 1080p clips rendered from a seed;
                output checks, launch counts, compare mode twice (the
                alignment stage on the same keypoints, and whole runs with
-               deterministic cuDNN, to the bit), and the same program on the
-               CPU (plain versions) on a small input as the reference
+               deterministic cuDNN, to the bit), one analyze with a
+               JsonlLogger (its "analyze" event and fields), and the same
+               program on the CPU (plain versions) on a small input as the
+               reference
   5. times     kernel, plain and library times (CUDA events around one call;
                `graph_ms` is the kernel alone, 20 calls replayed in a CUDA
                graph; kernel A's library call is timed both ways too) at the
@@ -75,6 +77,11 @@ Phases (each prints one line; any failure exits non-zero):
  13. e2e_score demo_e2e at small counts (about 17 clips of 48 frames at
                540x960): the JAX script's JSON keys, every score finite in
                [0, 1], the comparison video written
+ 14. bench     `python -m golfaction_tpu_torch.cli bench --clips 2
+               --e2e-clips 4 --iters 2 --impl-compare` in a subprocess: rc 0,
+               the headline, e2e, pose, GCN (four buckets) and alignment
+               rates finite and positive, sol_vs_peak and mfu_vs_peak in
+               (0, 1.05]
 Phases 4 (main), 5 (e2e, breakdown), 10-13 and the trainers' timed steps run
 at the configs' default dtype (bfloat16); the comparisons with the CPU
 (reference_cpu, single_peak_cpu, options_cpu, train_step_*_vs_cpu),
@@ -88,7 +95,8 @@ runs only the options phase, N times on the same clips (a record of whether
 `options_cpu` ever fails).
 
 A kernel's `launches` counts calls of its wrapper, summed over the driven
-paths (4, 6-9, 11-13); each path zeroes the counts just before it runs and
+paths (4, 6-9, 11-14; the bench counts its own, in its process, from its
+headline to config 1); each path zeroes the counts just before it runs and
 reads them just after.  The GCN tail's call is four __global__ launches
 (rows, taps, gates, apply); the others' is one.  The `launches` line also
 carries `phase_seconds`, the host seconds each phase took.
@@ -104,6 +112,8 @@ import time
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from golfaction_tpu_torch.bench import cuda_ms, graph_ms, kernel_counters
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
@@ -226,51 +236,6 @@ def boxes_of(kpts: np.ndarray) -> np.ndarray:
 # ---------------------------------------------------------------------------
 # Timing and bounds
 # ---------------------------------------------------------------------------
-
-def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median milliseconds of fn() over `reps` runs, CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        e.synchronize()
-        times.append(s.elapsed_time(e))
-    return float(np.median(times))
-
-
-def graph_ms(fn, calls: int = 20, reps: int = 10) -> float:
-    """Device milliseconds per call of fn(): `calls` calls captured in one
-    CUDA graph and replayed, so no host launch gap sits between them (the
-    event pair of `cuda_ms` around one call of a 10-microsecond kernel reads
-    mostly that gap).  The inputs are the same in every call, so they are
-    read from L2 where they fit."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        s.record()
-        graph.replay()
-        e.record()
-        e.synchronize()
-        times.append(s.elapsed_time(e) / calls)
-    return float(np.median(times))
-
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
     tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
@@ -1421,13 +1386,66 @@ def e2e_score_phase(counters) -> dict:
     return launches
 
 
-def kernel_counters() -> dict:
-    """Each kernel's wrapper, which counts its launches."""
-    from golfaction_tpu_torch.ops import gcn_tail, heatmap, preprocess, requant, softdtw
+def logger_check(pipe, clip, boxes) -> None:
+    """One analyze with a JsonlLogger on a temporary file: one "analyze"
+    event carrying frames, bucket, hw and wall_ms."""
+    import tempfile
 
-    return {"preprocess": preprocess.crop_resize_normalize, "gcn_tail": gcn_tail.gcn_block_tail,
-            "softdtw": softdtw.wavefront, "decode": heatmap.decode_heatmaps,
-            "softdtw_bwd": softdtw.softdtw_backward, "requant": requant.requant_epilogue}
+    from golfaction_tpu_torch.utils.logging import JsonlLogger
+
+    with tempfile.TemporaryDirectory() as d:
+        pipe.logger = JsonlLogger(f"{d}/events.jsonl")
+        try:
+            pipe.analyze(clip, boxes=boxes)
+        finally:
+            pipe.logger.close()
+            pipe.logger = None
+        with open(f"{d}/events.jsonl") as f:
+            events = [json.loads(line) for line in f]
+    say("logger", events=events)
+    check(len(events) == 1 and events[0]["event"] == "analyze", "logger: not one analyze event")
+    ev = events[0]
+    check(ev["frames"] == len(clip) and ev["bucket"] >= len(clip)
+          and ev["hw"] == list(clip.shape[1:3]) and ev["wall_ms"] > 0,
+          f"logger: the analyze event's fields are wrong: {ev}")
+
+
+BENCH_ARGS = ("--clips", "2", "--e2e-clips", "4", "--iters", "2", "--impl-compare")
+
+
+def bench_phase() -> dict:
+    """`cli bench` in a subprocess (its own process, as a user runs it): rc 0
+    and the rates of its last JSON line; returns the launches it counted."""
+    cmd = [sys.executable, "-m", "golfaction_tpu_torch.cli", "bench", *BENCH_ARGS]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    lines = [line for line in proc.stdout.splitlines() if line.startswith("{")]
+    if proc.returncode != 0 or not lines:
+        print(proc.stderr[-6000:], file=sys.stderr)
+    check(proc.returncode == 0, f"bench: rc {proc.returncode}")
+    check(bool(lines), "bench: no JSON line")
+    res = json.loads(lines[-1])
+    rates = {k: res.get(k) for k in ("value", "e2e_fps", "pose_fps", "softdtw_pairs_per_s")}
+    buckets = res.get("gcn_fps_by_bucket") or {}
+    shares = {k: res.get(k) for k in ("sol_vs_peak", "mfu_vs_peak")}
+    say("bench", call="cli bench " + " ".join(BENCH_ARGS), seconds=round(seconds, 3),
+        device=res.get("device"), power_limit=res.get("power_limit"), **rates,
+        gcn_fps_by_bucket=buckets, gcn_tail_graph_ms_by_bucket=res.get(
+            "gcn_tail_graph_ms_by_bucket"), **shares, sol_tflops=res.get("sol_tflops"),
+        effective_tflops=res.get("effective_tflops"), flops_per_call=res.get("flops_per_call"),
+        stages={k: v["mean_ms"] for k, v in (res.get("stages") or {}).items()},
+        impl_compare=res.get("impl_compare"), launches=res.get("launches"))
+    check(all(isinstance(v, (int, float)) and np.isfinite(v) and v > 0 for v in rates.values()),
+          f"bench: a rate is not finite and positive: {rates}")
+    check(len(buckets) == 4 and all(np.isfinite(v) and v > 0 for v in buckets.values()),
+          f"bench: gcn_fps_by_bucket is not four finite positive rates: {buckets}")
+    check(all(isinstance(v, (int, float)) and 0 < v <= 1.05 for v in shares.values()),
+          f"bench: a share of the peak is outside (0, 1.05]: {shares}")
+    launches = res.get("launches") or {}
+    for k in ("preprocess", "gcn_tail", "softdtw"):
+        check(launches.get(k, 0) > 0, f"bench: kernel {k} was not launched")
+    return launches
 
 
 def smoke_clips():
@@ -1655,6 +1673,7 @@ def main() -> int:
     say("native_boxes", frames=16, hw=list(VIDEO_HW), max_px_vs_numpy=nb_gap, atol_px=1.0)
     check(nb_gap <= 1.0, "C++ motion boxes more than 1 px off the numpy body")
     compare_determinism(pipe32, clips[2:], boxes[2:], reference)
+    logger_check(pipe, clips[0], boxes[0])
     say("main_checks", results=2 + len(res_batch), ok=True,
         phase_labels=res_cmp.phase_labels[:8].tolist(),
         error_probs=[round(float(v), 6) for v in res_cmp.error_probs],
@@ -1852,11 +1871,14 @@ def main() -> int:
     say("time", **{k: requant_entry[k] for k in TIME_KEYS if k in requant_entry})
     torch.cuda.empty_cache()
     paths["options"] = options_phase(clips, boxes, counters)
+    lap("options")
+    torch.cuda.empty_cache()
+    paths["bench"] = bench_phase()
+    lap("bench")
     names = ("preprocess", "gcn_tail", "softdtw", "decode", "softdtw_bwd", "requant")
     for en, k in zip(entries, names):
         en["launches"] = sum(p[k] for p in paths.values())
         check(en["launches"] > 0, f"kernel {k} was launched on no driven path")
-    lap("options")
     say("launches", by_path=paths, phase_seconds=phase_seconds,
         smoke_seconds=round(time.perf_counter() - wall0, 3))
 

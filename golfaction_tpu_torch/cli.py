@@ -5,6 +5,7 @@
     python -m golfaction_tpu_torch.cli compare swing.mp4 pro.mp4 [--out-video cmp.mp4]
     python -m golfaction_tpu_torch.cli stream swing.mp4|clip.npy|camera:N
     python -m golfaction_tpu_torch.cli train {pose,gcn,align,error} [--steps N]
+    python -m golfaction_tpu_torch.cli bench [bench.py's flags]
 
 Every subcommand takes --checkpoint, --preset, --set KEY=VALUE (repeatable)
 and --device (default cuda; cpu runs the kernels' plain versions).  For
@@ -12,8 +13,8 @@ analyze, compare and stream the checkpoint is an artifacts tree of npz
 checkpoints (the shipped model's form; without one the weights are random
 from seed 0, as the JAX CLI's); for train it is a step checkpoint (.pt) of an
 earlier run to resume, and --set edits the model's section of the preset.
-Outputs are JSON on stdout; progress goes to stderr.  The JAX CLI's `bench`
-has no counterpart yet.
+`bench` runs golfaction_tpu_torch/bench.py with the other arguments and
+--device.  Outputs are JSON on stdout; progress goes to stderr.
 """
 
 from __future__ import annotations
@@ -184,6 +185,14 @@ def cmd_train(args):
                       "checkpoint": path}))
 
 
+def cmd_bench(args, bench_args):
+    from golfaction_tpu_torch import bench
+
+    rc = bench.main([*bench_args, "--device", args.device])
+    if rc:
+        sys.exit(rc)
+
+
 def _common(p, checkpoint_help="artifacts tree of trained npz checkpoints"):
     p.add_argument("--checkpoint", help=checkpoint_help)
     p.add_argument("--preset", default="full_pipeline")
@@ -243,7 +252,18 @@ def main(argv=None):
     _common(t, checkpoint_help="step checkpoint (.pt) of an earlier run to resume")
     t.set_defaults(fn=cmd_train)
 
-    args = p.parse_args(argv)
+    b = sub.add_parser("bench", help="run the benchmark harness (golfaction_tpu_torch/bench.py; "
+                                     "its flags follow)")
+    b.add_argument("--device", default="cuda",
+                   help="cuda (the kernels) or cpu (their plain versions)")
+    b.set_defaults(fn=cmd_bench)
+
+    args, extra = p.parse_known_args(argv)
+    if args.cmd == "bench":
+        args.fn(args, extra)
+        return
+    if extra:
+        p.error(f"unrecognized arguments: {' '.join(extra)}")
     args.fn(args)
 
 

@@ -58,11 +58,15 @@ class Pipeline:
     identity).
     `error_thresholds`: per-fault decision thresholds [NUM_ERRORS]
     (checkpoint.load_error_thresholds), used when `analyze` gets none.
+    `logger`: an optional utils.logging.JsonlLogger; `analyze` then logs an
+    "analyze" event (frames, bucket, hw, wall_ms), the card synchronized
+    before the clock is read.
     """
 
     def __init__(self, cfg: PipelineConfig | None = None, params: dict | None = None,
-                 device="cuda", seed: int = 0, error_thresholds=None):
+                 device="cuda", seed: int = 0, error_thresholds=None, logger=None):
         self.cfg = cfg or get_config()
+        self.logger = logger
         c = self.cfg
         self.device = resolve_device(device)
         self.pose_model = PoseNet(c.pose)
@@ -92,7 +96,8 @@ class Pipeline:
 
     @classmethod
     def from_artifacts(cls, root: str = "artifacts", preset: str = "full_pipeline",
-                       device="cuda", overrides: Sequence[str] = ()) -> "Pipeline":
+                       device="cuda", overrides: Sequence[str] = (),
+                       logger=None) -> "Pipeline":
         """The shipped model: the preset with `overrides` (config.apply_overrides
         syntax) adapted to the tree (pose_meta.json, the checkpoints'
         shapes), weights from `<root>/params/*.npz`, per-fault thresholds
@@ -101,7 +106,7 @@ class Pipeline:
         cfg = checkpoint.config_for_artifacts(cfg, root)
         params = weights.from_flax(checkpoint.load_params(root))
         return cls(cfg, params, device=device,
-                   error_thresholds=checkpoint.load_error_thresholds(root))
+                   error_thresholds=checkpoint.load_error_thresholds(root), logger=logger)
 
     def _init_random(self, seed: int) -> None:
         gen = torch.Generator().manual_seed(seed)
@@ -213,7 +218,12 @@ class Pipeline:
     def _core_fn(self, frames, boxes, valid) -> dict:
         """Clips [N, T, H, W, 3] -> keypoints, phase logits/labels, error
         logits (and the pose aux block when mode features are on)."""
-        kpts, aux = self._pose_fn(frames, boxes)
+        return self._heads_fn(*self._pose_fn(frames, boxes), valid)
+
+    def _heads_fn(self, kpts, aux, valid) -> dict:
+        """The core after the pose stage: [keypoint refiner ->] skeleton
+        normalize -> GCN -> error head, on keypoints [N, T, V, 3] and the
+        pose aux block (or None)."""
         if self.refine_model is not None:
             kpts = self.refine_model(kpts, valid)
         sk = normalize_skeleton(kpts, valid)
@@ -302,12 +312,19 @@ class Pipeline:
         """Analyze one swing clip (a path or frames [T, H, W, 3] uint8).
         With `reference` (a Skeleton, e.g. from `extract_skeleton`) the
         soft-DTW alignment is included and the error head is refined."""
+        t0 = time.perf_counter()
         frames = video_io.load_video(video)[0] if isinstance(video, str) else np.asarray(video)
         frames_p, boxes_p, valid_np = self._prepare(frames, boxes)
         valid = torch.from_numpy(valid_np).to(self.device)
         out = self._core_fn(self._to_device([frames_p]), self._to_device([boxes_p]),
                             valid[None])
         out = {k: v[0] for k, v in out.items()}
+        if self.logger is not None:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.logger.log("analyze", frames=int(valid_np.sum()), bucket=int(frames_p.shape[0]),
+                            hw=list(frames_p.shape[1:3]),
+                            wall_ms=1e3 * (time.perf_counter() - t0))
         alignment = None
         if reference is not None:
             a = self._align_refine_fn(

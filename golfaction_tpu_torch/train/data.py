@@ -18,7 +18,7 @@ Everything is NumPy (and OpenCV drawing) on the host.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Iterator, Optional
 
 import numpy as np
 
@@ -711,6 +711,22 @@ def make_fault_balanced_batch(
     meaningless (measured: two faults scored F1 0.00 purely because the
     24-clip calibration contained no examples of them).
     """
+    return list(iter_fault_balanced(per_fault, num_frames, seed, image_hw, render, sev_range,
+                                    clean, scene_families))
+
+
+def iter_fault_balanced(
+    per_fault: int,
+    num_frames: int,
+    seed: int = 0,
+    image_hw: Optional[tuple[int, int]] = None,
+    render: bool = False,
+    sev_range: tuple[float, float] = (0.6, 1.0),
+    clean: Optional[int] = None,
+    scene_families: Optional[tuple] = None,
+) -> Iterator[SwingSample]:
+    """The clips of `make_fault_balanced_batch`, one at a time (the same
+    draws in the same order), so that only one clip's frames are held."""
     clean = per_fault if clean is None else clean
     rng = np.random.default_rng(seed)
     specs = [
@@ -718,7 +734,6 @@ def make_fault_balanced_batch(
         for name in cfg_mod.SWING_ERRORS
         for _ in range(per_fault)
     ] + [{} for _ in range(clean)]
-    out = []
     for i, faults in enumerate(specs):
         s = swing_keypoints(
             num_frames, np.random.default_rng(seed + 7919 * (i + 1)),
@@ -731,8 +746,7 @@ def make_fault_balanced_batch(
                 fam = (int(rng.choice(scene_families))
                        if scene_families is not None else None)
                 s = render_frames_photo(s, image_hw, rng=rng, scene_family=fam)
-        out.append(s)
-    return out
+        yield s
 
 
 def progress_align_reference(

@@ -35,6 +35,7 @@ from golfaction_tpu_torch.ops import affine, heatmap, preprocess
 from golfaction_tpu_torch.pipeline.orchestrator import resolve_device
 from golfaction_tpu_torch.train import data as data_mod
 from golfaction_tpu_torch.train import losses, metrics
+from golfaction_tpu_torch.utils.logging import TensorBoardScalars
 
 
 @dataclasses.dataclass
@@ -108,11 +109,9 @@ def _run_training(model, loss_fn: Callable, batch_fn: Callable[[int], Any],
     train_cfg.checkpoint_every steps.  Each history record carries the step,
     the loss, the gradient norm, `aux_keys`, and `seconds`: the host clock
     since the loop began, read after the record's values have come back
-    from the device.
+    from the device.  With `train_cfg.tb_logdir` each record but its step
+    is mirrored into TensorBoard scalars at its step.
     """
-    if train_cfg.tb_logdir is not None:
-        raise NotImplementedError("the TensorBoard scalar mirror is not ported yet; "
-                                  "leave TrainConfig.tb_logdir at None")
     optimizer, scheduler = make_optimizer(model.parameters(), train_cfg)
     start_step = 0
     if resume_from:
@@ -125,21 +124,26 @@ def _run_training(model, loss_fn: Callable, batch_fn: Callable[[int], Any],
 
     model.train()
     history = []
+    tb = TensorBoardScalars(train_cfg.tb_logdir)
     t0 = time.perf_counter()
-    for step in range(start_step, train_cfg.total_steps):
-        aux = train_step(model, optimizer, scheduler, loss_fn, batch_fn(step), step)
-        if step % log_every == 0 or step == train_cfg.total_steps - 1:
-            rec = {"step": step, "loss": float(aux["loss"]),
-                   "grad_norm": float(aux["grad_norm"])}
-            rec.update({k: float(aux[k]) for k in aux_keys})
-            rec["seconds"] = time.perf_counter() - t0
-            history.append(rec)
-        if (checkpoint_tag and train_cfg.checkpoint_every > 0
-                and (step + 1) % train_cfg.checkpoint_every == 0):
-            path = _checkpoint_path(train_cfg, checkpoint_tag, step + 1)
-            os.makedirs(os.path.dirname(path), exist_ok=True)
-            torch.save({"model": model.state_dict(), "optimizer": optimizer.state_dict(),
-                        "scheduler": scheduler.state_dict(), "step": step + 1}, path)
+    try:
+        for step in range(start_step, train_cfg.total_steps):
+            aux = train_step(model, optimizer, scheduler, loss_fn, batch_fn(step), step)
+            if step % log_every == 0 or step == train_cfg.total_steps - 1:
+                rec = {"step": step, "loss": float(aux["loss"]),
+                       "grad_norm": float(aux["grad_norm"])}
+                rec.update({k: float(aux[k]) for k in aux_keys})
+                rec["seconds"] = time.perf_counter() - t0
+                history.append(rec)
+                tb.log(step, **{k: v for k, v in rec.items() if k != "step"})
+            if (checkpoint_tag and train_cfg.checkpoint_every > 0
+                    and (step + 1) % train_cfg.checkpoint_every == 0):
+                path = _checkpoint_path(train_cfg, checkpoint_tag, step + 1)
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                torch.save({"model": model.state_dict(), "optimizer": optimizer.state_dict(),
+                            "scheduler": scheduler.state_dict(), "step": step + 1}, path)
+    finally:
+        tb.close()        # flush the buffered scalars even when a step raises
     model.eval()
     return TrainState(model, optimizer, scheduler, train_cfg.total_steps), history
 

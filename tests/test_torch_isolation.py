@@ -32,7 +32,9 @@ def test_sources_found():
     found = {str(p.relative_to(PKG)) for p in SOURCES[:-1]}
     assert {"train/__init__.py", "train/data.py", "train/loops.py", "train/losses.py",
             "train/metrics.py", "cli.py", "demo_e2e.py", "pipeline/streaming.py",
-            "pipeline/report.py", "pipeline/visualize.py", "models/precision.py"} <= found
+            "pipeline/report.py", "pipeline/visualize.py", "models/precision.py",
+            "utils/profiling.py", "utils/logging.py", "train/import_weights.py",
+            "bench.py"} <= found
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))

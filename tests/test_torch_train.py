@@ -593,9 +593,10 @@ def test_gcn_training_mode():
 
 
 def test_what_is_not_ported_raises():
-    tc = tcfg.TrainConfig(**{**TRAIN, "tb_logdir": "runs"})
-    with pytest.raises(NotImplementedError):
-        tloops.train_error(tcfg.ErrorConfig(**ERROR), tc, frames_per_clip=8, device="cpu")
+    # Data parallelism is not ported: a non-default mesh is refused.  (The
+    # TensorBoard mirror, refused here before, is ported: test_torch_utils.py.)
+    with pytest.raises(ValueError, match="data parallelism is not ported"):
+        tcfg.PipelineConfig(mesh=tcfg.MeshConfig(data_parallel=2))
     three = tcfg.PoseConfig(**{**POSE, "in_frames": 3})
     s = tdata.make_swing_batch(1, 4, seed=0, image_hw=(64, 96), render=True, render_style="blob")
     # Temporal context (in_frames > 1) is ported: nine channels, not a raise.
