@@ -82,6 +82,19 @@ Phases (each prints one line; any failure exits non-zero):
                the headline, e2e, pose, GCN (four buckets) and alignment
                rates finite and positive, sol_vs_peak and mfu_vs_peak in
                (0, 1.05]
+ 15. parallel  data parallelism (golfaction_tpu_torch/parallel/): two gloo
+               ranks spawned on this card (a file store) run the shipped
+               model's sharded analyze_batch of 8 clips (clip_batch 4,
+               deterministic cuDNN; each rank renders and reads only its own
+               clips), one data-parallel step of the skeleton loss at the
+               trainers' default widths (float32) and the row-band sharded
+               soft-DTW at [128, 80] and [61, 45]; this process runs the same
+               analyze_batch and step without a mesh and through a one-rank
+               NCCL group.  Sharded and NCCL results equal one process to the
+               bit, the two-rank step within rel 1e-4, the soft-DTW cost
+               within rtol 2e-5 of the oracle and the summed band gradients
+               within atol 2e-5; frames/s of two ranks against one process
+               and the soft-DTW's ms a call
 Phases 4 (main), 5 (e2e, breakdown), 10-13 and the trainers' timed steps run
 at the configs' default dtype (bfloat16); the comparisons with the CPU
 (reference_cpu, single_peak_cpu, options_cpu, train_step_*_vs_cpu),
@@ -95,8 +108,8 @@ runs only the options phase, N times on the same clips (a record of whether
 `options_cpu` ever fails).
 
 A kernel's `launches` counts calls of its wrapper, summed over the driven
-paths (4, 6-9, 11-14; the bench counts its own, in its process, from its
-headline to config 1); each path zeroes the counts just before it runs and
+paths (4, 6-9, 11-15; the bench counts its own, in its process, from its
+headline to config 1; the parallel phase adds what its ranks counted); each path zeroes the counts just before it runs and
 reads them just after.  The GCN tail's call is four __global__ launches
 (rows, taps, gates, apply); the others' is one.  The `launches` line also
 carries `phase_seconds`, the host seconds each phase took.
@@ -421,6 +434,7 @@ def single_peak_phase(clips, boxes, counters) -> dict:
     from golfaction_tpu_torch.config import get_config
     from golfaction_tpu_torch.pipeline.orchestrator import Pipeline
     from golfaction_tpu_torch.types import Skeleton
+    from tests import torch_dp
 
     cfg = float32(get_config("full_pipeline"))      # single_peak_cpu's limits are float32's
     check(cfg.pose.decode_tracking == 0 and cfg.pose.udp, "preset is not single-peak UDP")
@@ -811,6 +825,7 @@ def options_phase(clips, boxes, counters) -> dict:
     from golfaction_tpu_torch.config import PoseConfig, RefineConfig, get_config
     from golfaction_tpu_torch.pipeline.orchestrator import Pipeline
     from golfaction_tpu_torch.types import Skeleton
+    from tests import torch_dp
 
     H, W = VIDEO_HW
     base = checkpoint.config_for_artifacts(get_config("full_pipeline"), "artifacts")
@@ -1448,6 +1463,273 @@ def bench_phase() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 15. parallel: data parallelism on torch.distributed
+# ---------------------------------------------------------------------------
+
+PARALLEL_CLIPS = 8              # the smoke's six clips and two more from seed 0
+PARALLEL_SDTW = (((128, 80), 0.3, None, 21), ((61, 45), 0.3, 4, 5))   # shape, gamma, C, seed
+
+
+class SmokeClips:
+    """The smoke's clips from seed 0 (as smoke_clips, `n` of them), each
+    rendered on the card when first read; `read` keeps which were."""
+
+    def __init__(self, n: int):
+        rng = np.random.default_rng(0)
+        self.kpts = [swing_keypoints(CLIP_T, rng) for _ in range(n)]
+        self.boxes = [boxes_of(k) for k in self.kpts]
+        self.frames, self.read = {}, set()
+
+    def __len__(self) -> int:
+        return len(self.kpts)
+
+    def __getitem__(self, i: int) -> np.ndarray:
+        self.read.add(i)
+        if i not in self.frames:
+            self.frames[i] = render_clip(self.kpts[i], seed=i)
+        return self.frames[i]
+
+
+def skeleton_setup(dev):
+    """The DP step's three models at the trainers' default widths (float32,
+    dropout 0), random weights from seed 0; AdamW without warmup; the
+    global batch (8 swings of 64 frames, seed 0)."""
+    from golfaction_tpu_torch import config as cfg_mod, weights
+    from golfaction_tpu_torch.models.align import AlignEncoder
+    from golfaction_tpu_torch.models.error import ErrorClassifier
+    from golfaction_tpu_torch.models.gcn import ActionSegmentationGCN
+    from golfaction_tpu_torch.train import data, loops
+    from tests import torch_dp
+
+    models = torch.nn.ModuleDict({
+        "gcn": ActionSegmentationGCN(cfg_mod.GCNConfig(dropout=0.0, dtype="float32")),
+        "error": ErrorClassifier(cfg_mod.ErrorConfig(dtype="float32")),
+        "align": AlignEncoder(cfg_mod.AlignConfig(dtype="float32"))})
+    gen = torch.Generator().manual_seed(0)
+    for m in models.values():
+        weights.init_random(m, gen)
+    models.to(dev).train()
+    opt, sched = loops.make_optimizer(models.parameters(), cfg_mod.TrainConfig(
+        warmup_steps=0, total_steps=10))
+    batch = torch_dp.build_skeleton_batch(data.make_swing_batch(8, CLIP_T, seed=0,
+                                                                fault_prob=0.5), device=dev)
+    return models, opt, sched, batch
+
+
+def _fields(res) -> dict:
+    return {"keypoints": res.keypoints, "phase_labels": res.phase_labels,
+            "error_probs": res.error_probs, "cost": res.alignment.cost,
+            "path": res.alignment.path, "path_length": res.alignment.path_length}
+
+
+def _zero(counters) -> None:
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def parallel_rank(rank: int, world: int, spec: dict) -> dict:
+    """One of the `parallel` phase's gloo ranks, all on cuda:0: the sharded
+    analyze_batch of the shipped model (a warm call, then a timed one), one
+    data-parallel skeleton step, and the sharded soft-DTW (its gradient,
+    and milliseconds a forward call); each part's kernel launches."""
+    import torch.distributed as dist
+
+    from golfaction_tpu_torch.ops.softdtw_sharded import softdtw_cost_sharded
+    from golfaction_tpu_torch.parallel import mesh as mesh_mod, train_step as ts
+    from golfaction_tpu_torch.pipeline.orchestrator import Pipeline
+    from golfaction_tpu_torch.types import Skeleton
+    from tests import torch_dp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    dev = torch.device("cuda:0")
+    mesh = mesh_mod.make_mesh(device=dev)
+    counters = kernel_counters()
+    out = {}
+
+    clips = SmokeClips(spec["clips"])
+    pipe = Pipeline.from_artifacts("artifacts", overrides=["clip_batch=4"], mesh=mesh)
+    ref = Skeleton(keypoints=torch.from_numpy(spec["ref_kpts"]),
+                   valid=torch.from_numpy(spec["ref_valid"]))
+    pipe.analyze_batch(clips, boxes=clips.boxes, reference=ref)            # warm
+    _zero(counters)
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = pipe.analyze_batch(clips, boxes=clips.boxes, reference=ref)
+    torch.cuda.synchronize()
+    out["analyze"] = {"wall_s": time.perf_counter() - t0, "results": [_fields(r) for r in res],
+                      "launches": {k: fn.launches for k, fn in counters.items()},
+                      "read": sorted(clips.read), "stats": pipe.last_batch_stats}
+    del pipe, clips
+    torch.cuda.empty_cache()
+
+    models, opt, sched, batch = skeleton_setup(dev)
+    mesh_mod.replicate(models, mesh)
+    step = ts.make_dp_train_step(torch_dp.skeleton_loss, opt, mesh, sched)
+    _zero(counters)
+    aux = step(models, mesh_mod.shard_batch(batch, mesh), 0)
+    out["train"] = {"loss": float(aux["loss"]), "grad_norm": float(aux["grad_norm"]),
+                    "launches": {k: fn.launches for k, fn in counters.items()}}
+
+    out["softdtw"] = []
+    for (shape, gamma, cc, seed) in spec["sdtw"]:
+        D = torch.from_numpy(np.random.default_rng(seed).uniform(0, 2, shape).astype(
+            np.float32)).to(dev).requires_grad_()
+        cost = softdtw_cost_sharded(D, gamma, mesh, col_chunks=cc)
+        cost.backward()
+        with torch.no_grad():
+            walls = []
+            for _ in range(3):
+                dist.barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                softdtw_cost_sharded(D, gamma, mesh, col_chunks=cc)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+        out["softdtw"].append({"cost": float(cost.detach()), "grad": D.grad, "ms": walls})
+    return out
+
+
+def parallel_phase(clips, reference, counters) -> dict:
+    """Data parallelism: two gloo ranks sharing the card (spawned, a file
+    store) run the shipped model's sharded analyze_batch on 8 clips
+    (clip_batch 4, deterministic cuDNN), one data-parallel skeleton step
+    and the sharded soft-DTW; this process runs the same analyze_batch and
+    step without a mesh, and both again through a one-rank NCCL group.
+    Checks: the sharded results equal the one-process ones to the bit, and
+    each rank read only its own clips; the two-rank step within rel 1e-4
+    of one process; the NCCL-group runs equal the no-mesh runs to the bit;
+    the soft-DTW cost within rtol 2e-5 of softdtw_reference and the ranks'
+    summed gradients within atol 2e-5 of softdtw_grad_reference.  Returns
+    the launches of the ranks' and the NCCL group's runs."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from golfaction_tpu_torch.ops import softdtw
+    from golfaction_tpu_torch.parallel import mesh as mesh_mod, train_step as ts
+    from golfaction_tpu_torch.pipeline.orchestrator import Pipeline
+    from golfaction_tpu_torch.train import loops
+    from tests import torch_dp
+
+    world, dev = 2, torch.device("cuda:0")
+    spec = {"clips": PARALLEL_CLIPS, "sdtw": PARALLEL_SDTW,
+            "ref_kpts": reference.keypoints.cpu().numpy(),
+            "ref_valid": reference.valid.cpu().numpy()}
+    store = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    try:
+        t0 = time.perf_counter()
+        ranks = torch_dp.run_ranks(parallel_rank, world, store, (spec,), timeout=420.0)
+        ranks_s = time.perf_counter() - t0
+
+        every = SmokeClips(PARALLEL_CLIPS)
+        every.frames.update(enumerate(clips))            # the first six, already rendered
+        ref = reference
+        torch.backends.cudnn.deterministic = True
+        try:
+            pipe = Pipeline.from_artifacts("artifacts", device="cuda", overrides=["clip_batch=4"])
+            pipe.analyze_batch(every, boxes=every.boxes, reference=ref)     # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one = [_fields(r) for r in pipe.analyze_batch(every, boxes=every.boxes,
+                                                           reference=ref)]
+            torch.cuda.synchronize()
+            one_wall = time.perf_counter() - t0
+            del pipe
+            models, opt, sched, batch = skeleton_setup(dev)
+            aux = loops.train_step(models, opt, sched, torch_dp.skeleton_loss, batch, 0)
+            step_one = (float(aux["loss"]), float(aux["grad_norm"]),
+                        [p.detach().clone() for p in models.parameters()])
+            del models, opt
+
+            dist.init_process_group("nccl", init_method="file://" + store + "/nccl", rank=0,
+                                    world_size=1, device_id=dev)
+            try:
+                mesh = mesh_mod.make_mesh(device=dev)
+                _zero(counters)
+                pipe = Pipeline.from_artifacts("artifacts", overrides=["clip_batch=4"],
+                                               mesh=mesh)
+                nccl = [_fields(r) for r in pipe.analyze_batch(every, boxes=every.boxes,
+                                                                reference=ref)]
+                del pipe
+                models, opt, sched, batch = skeleton_setup(dev)
+                aux = ts.make_dp_train_step(torch_dp.skeleton_loss, opt, mesh, sched)(
+                    models, mesh_mod.shard_batch(batch, mesh), 0)
+                nccl_launches = {k: fn.launches for k, fn in counters.items()}
+                step_nccl = (float(aux["loss"]), float(aux["grad_norm"]),
+                             [p.detach().clone() for p in models.parameters()])
+                del models, opt
+            finally:
+                dist.destroy_process_group()
+        finally:
+            torch.backends.cudnn.deterministic = False
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+
+    def host(v):
+        return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+    def same(a: list, b: list) -> list:
+        """Fields that are not equal to the bit in some clip."""
+        return sorted({k for x, y in zip(a, b) for k in x
+                       if not np.array_equal(host(x[k]), host(y[k]))})
+
+    frames = PARALLEL_CLIPS * CLIP_T
+    rank_differ = [same(r["analyze"]["results"], one) for r in ranks]
+    nccl_differ = same(nccl, one)
+    step_rel = [max(abs(r["train"]["loss"] / step_one[0] - 1),
+                    abs(r["train"]["grad_norm"] / step_one[1] - 1)) for r in ranks]
+    nccl_step_equal = (step_nccl[0] == step_one[0] and step_nccl[1] == step_one[1]
+                       and all(torch.equal(a, b) for a, b in zip(step_nccl[2], step_one[2])))
+    sdtw = []
+    for n, (shape, gamma, cc, seed) in enumerate(PARALLEL_SDTW):
+        D = np.random.default_rng(seed).uniform(0, 2, shape)
+        want, R = softdtw.softdtw_reference(D.astype(np.float32).astype(np.float64), gamma)
+        E = softdtw.softdtw_grad_reference(D.astype(np.float32).astype(np.float64), R, gamma)
+        got = [r["softdtw"][n] for r in ranks]
+        sdtw.append({"shape": list(shape), "gamma": gamma, "col_chunks": cc or world,
+                     "cost": [g["cost"] for g in got], "oracle": want,
+                     "cost_rel_err": max(abs(g["cost"] / want - 1) for g in got),
+                     "grad_max_abs_err": float(np.abs(sum(g["grad"] for g in got) - E).max()),
+                     "ms_per_call": [g["ms"] for g in got]})
+    launches = {k: sum(r["analyze"]["launches"][k] + r["train"]["launches"][k] for r in ranks)
+                + nccl_launches[k] for k in counters}
+    say("parallel", world=world, backend="gloo, both ranks on cuda:0", clips=PARALLEL_CLIPS,
+        frames=frames, clip_batch=4, reference=True, ranks_seconds=round(ranks_s, 3),
+        frames_per_s={"two_ranks": frames / max(r["analyze"]["wall_s"] for r in ranks),
+                      "one_process": frames / one_wall},
+        wall_s={"ranks": [r["analyze"]["wall_s"] for r in ranks], "one_process": one_wall},
+        clips_read=[r["analyze"]["read"] for r in ranks],
+        last_batch_stats=[r["analyze"]["stats"] for r in ranks], differ_in=rank_differ,
+        rank_launches=[{"analyze": r["analyze"]["launches"], "train": r["train"]["launches"]}
+                       for r in ranks],
+        train={"loss": [r["train"]["loss"] for r in ranks], "one_process_loss": step_one[0],
+               "grad_norm": [r["train"]["grad_norm"] for r in ranks],
+               "one_process_grad_norm": step_one[1], "max_rel_err": max(step_rel), "rtol": 1e-4},
+        nccl_world_1={"analyze_differ_in": nccl_differ, "step_equal": nccl_step_equal,
+                      "launches": nccl_launches},
+        softdtw_sharded=sdtw, launches=launches)
+    for r, d in zip(range(world), rank_differ):
+        check(not d, f"parallel: rank {r}'s sharded analyze_batch differs from one process "
+                     f"in {d}")
+    check(all(r["analyze"]["read"] == list(range(k, PARALLEL_CLIPS, world))
+              for k, r in enumerate(ranks)), "parallel: a rank read clips not its own")
+    check(max(step_rel) <= 1e-4, f"parallel: the two-rank step is {max(step_rel)} off one process")
+    check(not nccl_differ, f"parallel: the NCCL group's analyze_batch differs in {nccl_differ}")
+    check(nccl_step_equal, "parallel: the NCCL group's step differs from the no-mesh step")
+    for e in sdtw:
+        check(e["cost_rel_err"] <= 2e-5, f"parallel: sharded soft-DTW cost off at {e['shape']}")
+        check(e["grad_max_abs_err"] <= 2e-5, f"parallel: sharded soft-DTW gradient off at "
+                                             f"{e['shape']}")
+    for k in ("preprocess", "gcn_tail", "softdtw", "softdtw_bwd"):
+        check(launches[k] > 0, f"parallel: kernel {k} was not launched")
+    return launches
+
+
 def smoke_clips():
     """The rendered 1080p clips and their boxes, from seed 0."""
     rng = np.random.default_rng(0)
@@ -1492,6 +1774,7 @@ def main() -> int:
                                           softdtw)
     from golfaction_tpu_torch.pipeline.orchestrator import Pipeline
     from golfaction_tpu_torch.types import Skeleton
+    from tests import torch_dp
 
     wall0 = time.perf_counter()
     phase_seconds, lap0 = {}, [wall0]
@@ -1875,6 +2158,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths["bench"] = bench_phase()
     lap("bench")
+    torch.cuda.empty_cache()
+    paths["parallel"] = parallel_phase(clips, reference, counters)
+    lap("parallel")
     names = ("preprocess", "gcn_tail", "softdtw", "decode", "softdtw_bwd", "requant")
     for en, k in zip(entries, names):
         en["launches"] = sum(p[k] for p in paths.values())

@@ -134,7 +134,7 @@ class RefineConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """Device-mesh layout (kept for config compatibility)."""
+    """Device-mesh layout, read by parallel.mesh.make_mesh."""
 
     data_axis: str = "data"
     model_axis: str = "model"
@@ -168,11 +168,6 @@ class PipelineConfig:
             raise ValueError(
                 f"preprocess_dtype={self.preprocess_dtype!r} is not honoured by the port: "
                 "its crops are float32 (kernel A writes float32); only 'float32' is accepted")
-        if self.mesh != MeshConfig():
-            raise ValueError(
-                f"mesh={self.mesh!r} is not honoured by the port: it runs on one device "
-                "(data parallelism is not ported yet); only the default MeshConfig() is "
-                "accepted")
 
 
 @dataclasses.dataclass(frozen=True)

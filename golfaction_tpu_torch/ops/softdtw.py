@@ -118,10 +118,14 @@ def _softmin3(a, b, c, gamma: float):
     return m - gamma * torch.log(s)
 
 
-def wavefront_plain(D: torch.Tensor, gamma: float) -> torch.Tensor:
+def wavefront_plain(D: torch.Tensor, gamma: float, top=None, left=None,
+                    corner=None) -> torch.Tensor:
     """D [B, Ta, Tb] -> R [B, Ta, Tb]: one step per anti-diagonal, each
     diagonal indexed by row i (cell (i, k - i)); out-of-table cells are +INF
-    and a virtual R[-1, -1] = 0 feeds cell (0, 0)."""
+    and a virtual R[-1, -1] = 0 feeds cell (0, 0).  Given a boundary, R of
+    one tile of a larger table: top [B, Tb] = R of the row above, left
+    [B, Ta] = R of the column to the left, corner [B] = R above-left (the
+    defaults, +INF, +INF and 0, give the whole table)."""
     B, Ta, Tb = D.shape
     D = D.float()
     dev = D.device
@@ -129,20 +133,29 @@ def wavefront_plain(D: torch.Tensor, gamma: float) -> torch.Tensor:
     inf_col = torch.full((B, 1), _INF, dtype=torch.float32, device=dev)
     r1 = torch.full((B, Ta), _INF, dtype=torch.float32, device=dev)
     r2 = r1.clone()
+    inf_k = inf_col.expand(B, Ta - 1)
+    top = inf_col.expand(B, Tb) if top is None else top
+    up0 = torch.cat([top, inf_k], dim=1)                       # R[-1, k]
+    corner = torch.zeros_like(inf_col) if corner is None else corner.reshape(B, 1)
+    dg0 = torch.cat([corner, top, inf_k], dim=1)               # R[-1, k - 1]
+    if left is not None:
+        left_sh = torch.cat([inf_col, left[:, :-1]], dim=1)   # R[i - 1, -1]
     diags = []
     for k in range(Ta + Tb - 1):
         j = k - i
         in_band = (j >= 0) & (j < Tb)
         d = torch.where(in_band, D[:, i, j.clamp(0, Tb - 1)], _INF)
-        up = torch.cat([inf_col, r1[:, :-1]], dim=1)
-        dg = torch.cat([inf_col, r2[:, :-1]], dim=1)
+        up = torch.cat([up0[:, k:k + 1], r1[:, :-1]], dim=1)
+        dg = torch.cat([dg0[:, k:k + 1], r2[:, :-1]], dim=1)
+        lf = r1
+        if left is not None:
+            first = i == k                                     # j == 0
+            lf = torch.where(first, left, r1)
+            dg = torch.where(first & (i > 0), left_sh, dg)
         if gamma > 0:
-            sm = _softmin3(r1, up, dg, gamma)
+            sm = _softmin3(lf, up, dg, gamma)
         else:
-            sm = torch.minimum(torch.minimum(r1, up), dg)
-        if k == 0:
-            sm = sm.clone()
-            sm[:, 0] = 0.0
+            sm = torch.minimum(torch.minimum(lf, up), dg)
         r0 = torch.where(d >= _INF, _INF, d + sm)
         diags.append(r0)
         r1, r2 = r0, r1

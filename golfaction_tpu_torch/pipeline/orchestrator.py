@@ -19,6 +19,7 @@ CUDA device that is not there raises.
 from __future__ import annotations
 
 import concurrent.futures as cf
+import dataclasses
 import functools
 import os
 import time
@@ -29,13 +30,14 @@ import torch
 import torch.nn.functional as F
 
 from golfaction_tpu_torch import checkpoint, types, weights
-from golfaction_tpu_torch.config import PipelineConfig, apply_overrides, get_config
+from golfaction_tpu_torch.config import MeshConfig, PipelineConfig, apply_overrides, get_config
 from golfaction_tpu_torch.models.align import AlignEncoder
 from golfaction_tpu_torch.models.error import ErrorClassifier
 from golfaction_tpu_torch.models.gcn import ActionSegmentationGCN, normalize_skeleton
 from golfaction_tpu_torch.models.pose import PoseNet
 from golfaction_tpu_torch.models.refine import KeypointRefiner
 from golfaction_tpu_torch.ops import affine, heatmap, preprocess, softdtw
+from golfaction_tpu_torch.parallel import mesh as mesh_mod
 from golfaction_tpu_torch.pipeline import video_io
 
 
@@ -61,14 +63,32 @@ class Pipeline:
     `logger`: an optional utils.logging.JsonlLogger; `analyze` then logs an
     "analyze" event (frames, bucket, hw, wall_ms), the card synchronized
     before the clock is read.
+    `device`: "cuda" when None and no mesh.  `mesh`: a parallel.mesh.Mesh
+    with the layout of `cfg.mesh` (make_mesh(cfg.mesh)); the models then
+    live on its device with rank 0's parameters (`mesh.replicate`), and
+    `analyze_batch` splits the clips over its data shards.  A non-default
+    `cfg.mesh` without a mesh, or a mesh of another layout, raises
+    ValueError.
     """
 
     def __init__(self, cfg: PipelineConfig | None = None, params: dict | None = None,
-                 device="cuda", seed: int = 0, error_thresholds=None, logger=None):
+                 device=None, seed: int = 0, error_thresholds=None, logger=None, mesh=None):
         self.cfg = cfg or get_config()
         self.logger = logger
         c = self.cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is None:
+            if c.mesh != MeshConfig():
+                raise ValueError(f"cfg.mesh={c.mesh!r} asks for a mesh and none was given: pass "
+                                 "mesh=parallel.mesh.make_mesh(cfg.mesh) in a process group")
+            self.device = resolve_device(device or "cuda")
+        elif device is None or torch.device(device) in (mesh.device,
+                                                         torch.device(mesh.device.type)):
+            self.device = mesh.device
+        else:
+            raise ValueError(f"device {device} is not the mesh's device {mesh.device}")
+        if mesh is not None:
+            mesh_mod.check_config(mesh, c.mesh)
         self.pose_model = PoseNet(c.pose)
         self.gcn_model = ActionSegmentationGCN(c.gcn)
         self.align_model = AlignEncoder(c.align)
@@ -86,6 +106,8 @@ class Pipeline:
                 self.models[name].load_state_dict(sd)
         for m in self.models.values():
             m.to(self.device).eval()
+            if mesh is not None:
+                mesh_mod.replicate(m, mesh)
         self.gcn_model.prepare()
         self.last_batch_stats: Optional[dict] = None
         self.last_copy_ms: list = []
@@ -96,8 +118,8 @@ class Pipeline:
 
     @classmethod
     def from_artifacts(cls, root: str = "artifacts", preset: str = "full_pipeline",
-                       device="cuda", overrides: Sequence[str] = (),
-                       logger=None) -> "Pipeline":
+                       device=None, overrides: Sequence[str] = (),
+                       logger=None, mesh=None) -> "Pipeline":
         """The shipped model: the preset with `overrides` (config.apply_overrides
         syntax) adapted to the tree (pose_meta.json, the checkpoints'
         shapes), weights from `<root>/params/*.npz`, per-fault thresholds
@@ -106,7 +128,8 @@ class Pipeline:
         cfg = checkpoint.config_for_artifacts(cfg, root)
         params = weights.from_flax(checkpoint.load_params(root))
         return cls(cfg, params, device=device,
-                   error_thresholds=checkpoint.load_error_thresholds(root), logger=logger)
+                   error_thresholds=checkpoint.load_error_thresholds(root), logger=logger,
+                   mesh=mesh)
 
     def _init_random(self, seed: int) -> None:
         gen = torch.Generator().manual_seed(seed)
@@ -364,12 +387,59 @@ class Pipeline:
         not depend on which clips share its chunk, but they may differ in
         the last bits with the chunk's size: cuDNN may take other
         algorithms at another batch size.
+
+        With a mesh, clip i goes to data shard i % dp.  That is a function
+        of the index alone, so every rank agrees on it without a collective.
+        The JAX layout (each chunk's clip axis split over `data`, the chunk
+        padded to a multiple of dp) would need the ranks to agree on every
+        chunk, and chunks here follow decode-completion order, which differs
+        from rank to rank.  Each rank runs the body above on its own clips
+        only, and decodes only those; one all_gather of the per-clip results
+        (a failed clip's Exception included) then gives every rank the full
+        list in input order, on its own device.  `last_batch_stats` then
+        counts `clips` and `failures` over all shards and sums
+        `decode_s_total` over them; the other keys are this rank's.
         """
         t_start = time.perf_counter()
         n_vids = len(videos)
-        prepared: list = [None] * n_vids
+        mine = range(n_vids) if self.mesh is None else range(self.mesh.data_index, n_vids,
+                                                              self.mesh.dp)
+        results, stats = self._analyze_clips(videos, mine, boxes, reference, error_threshold,
+                                             decode_workers, t_start)
+        if self.mesh is not None:
+            results, stats = self._gather_results(results, stats)
+        self.last_batch_stats = {
+            "wall_s": time.perf_counter() - t_start,
+            "decode_s_total": stats["decode_s_total"],
+            "decode_workers": stats["decode_workers"],
+            "first_dispatch_s": stats["first_dispatch_s"],
+            "clips": n_vids,
+            "failures": stats["failures"],
+        }
+        return [results[i] for i in range(n_vids)]
+
+    def _gather_results(self, results: dict, stats: dict) -> tuple[dict, dict]:
+        """Every data shard's {index: result or Exception} and stats (one
+        all_gather through the host), the other shards' results moved to
+        this rank's device."""
+        host = {i: r if isinstance(r, Exception) else _to(r, "cpu") for i, r in results.items()}
+        merged, decode_s, failures = {}, 0.0, 0
+        for part, st in mesh_mod.gather_objects((host, stats), self.mesh):
+            merged.update(part)
+            decode_s += st["decode_s_total"]
+            failures += st["failures"]
+        merged = {i: results[i] if i in results else
+                  r if isinstance(r, Exception) else _to(r, self.device)
+                  for i, r in merged.items()}
+        return merged, dict(stats, decode_s_total=decode_s, failures=failures)
+
+    def _analyze_clips(self, videos, indices, boxes, reference, error_threshold,
+                       decode_workers, t_start) -> tuple[dict, dict]:
+        """The body of `analyze_batch` over videos[i] for i in `indices`:
+        ({i: AnalysisResult or Exception}, stats)."""
+        prepared: dict = {}
         failures: dict[int, Exception] = {}
-        decode_s = [0.0] * n_vids
+        decode_s = {i: 0.0 for i in indices}
         first_dispatch = [None]
         cb = max(1, self.cfg.clip_batch)
         outs: dict[int, dict] = {}
@@ -431,10 +501,10 @@ class Pipeline:
                 _compute(*uploads.pop(0))
 
         pending: dict[int, list[int]] = {}   # bucket length -> ready clips
-        workers = decode_workers or min(4, os.cpu_count() or 1, n_vids or 1)
+        workers = decode_workers or min(4, os.cpu_count() or 1, len(indices) or 1)
         with cf.ThreadPoolExecutor(max_workers=workers) as ex, \
                 cf.ThreadPoolExecutor(max_workers=1) as copier:
-            futs = {ex.submit(_decode, i): i for i in range(n_vids)}
+            futs = {ex.submit(_decode, i): i for i in indices}
             for fut in cf.as_completed(futs):
                 i = futs[fut]
                 try:
@@ -454,20 +524,9 @@ class Pipeline:
                 _compute(*uploads.pop(0))
         if stager is not None:
             self.last_copy_ms = stager.copy_ms()
-        self.last_batch_stats = {
-            "wall_s": time.perf_counter() - t_start,
-            "decode_s_total": sum(decode_s),
-            "decode_workers": workers,
-            "first_dispatch_s": first_dispatch[0],
-            "clips": n_vids,
-            "failures": len(failures),
-        }
 
-        results: list = []
-        for i, p in enumerate(prepared):
-            if p is None:
-                results.append(failures[i])
-                continue
+        results: dict = dict(failures)
+        for i, p in prepared.items():
             out = outs[i]
             probs = torch.sigmoid(out["error_logits"])
             alignment = None
@@ -475,12 +534,14 @@ class Pipeline:
                 a = out["alignment"]
                 alignment = types.AlignmentResult(cost=a["cost"], path=a["path"],
                                                   path_length=a["path_length"])
-            results.append(types.AnalysisResult(
+            results[i] = types.AnalysisResult(
                 keypoints=out["keypoints"], phase_labels=out["phase_labels"],
                 phase_logits=out["phase_logits"], error_flags=probs > thr,
                 error_probs=probs, valid=torch.from_numpy(p[2]).to(self.device),
-                alignment=alignment))
-        return results
+                alignment=alignment)
+        stats = {"decode_s_total": sum(decode_s.values()), "decode_workers": workers,
+                 "first_dispatch_s": first_dispatch[0], "failures": len(failures)}
+        return results, stats
 
     def extract_skeleton(self, result: types.AnalysisResult) -> types.Skeleton:
         return types.Skeleton(keypoints=result.keypoints, valid=result.valid)
@@ -573,6 +634,16 @@ def analyze(video, boxes=None, reference=None, preset: str = "full_pipeline",
     the preset (random weights from seed 0, as the JAX package's)."""
     return _default_pipeline(preset, str(device)).analyze(video, boxes=boxes,
                                                           reference=reference)
+
+
+def _to(obj, device):
+    """A tensor, or a dataclass of tensors (and of such dataclasses), on `device`."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{f.name: _to(getattr(obj, f.name), device)
+                                           for f in dataclasses.fields(obj)})
+    return obj
 
 
 def _index(tree, n):

@@ -315,43 +315,48 @@ def pose_joint_weights(arm_weight: float, device) -> torch.Tensor:
     return torch.from_numpy(jw).to(device)
 
 
-def pose_loss(model, batch, step: int = 0, joint_weights=None):
+# Each takes `mesh=` (a parallel.mesh.Mesh): the loss and the aux values are
+# then this data shard's share of the global batch's (losses.py), as
+# parallel.train_step.make_dp_train_step wants them.
+
+def pose_loss(model, batch, step: int = 0, joint_weights=None, mesh=None):
     crops, targets, wts = batch
     if joint_weights is not None:
         wts = wts * joint_weights
-    return losses.heatmap_mse(model(crops), targets, wts), {}
+    return losses.heatmap_mse(model(crops), targets, wts, mesh=mesh), {}
 
 
-def gcn_loss(model, batch, step: int = 0, seed: int = 0):
+def gcn_loss(model, batch, step: int = 0, seed: int = 0, mesh=None):
     """Label-smoothed per-frame cross entropy.  In training mode the block
     dropout draws from a generator seeded by (seed, step), so the mask
-    changes every step and a resumed run draws the same masks."""
+    changes every step and a resumed run draws the same masks (for the local
+    batch, with a mesh)."""
     sk, labels, valid = batch
     gen = None
     if model.training and model.cfg.dropout > 0:
         gen = torch.Generator(device=sk.device).manual_seed(seed * 1_000_003 + step)
     logits = model(sk, valid, generator=gen)
-    loss = losses.phase_cross_entropy(logits, labels, valid, label_smoothing=0.05)
-    acc = (logits.argmax(-1) == labels).float().mean()
+    loss = losses.phase_cross_entropy(logits, labels, valid, label_smoothing=0.05, mesh=mesh)
+    acc = losses.batch_mean((logits.argmax(-1) == labels).float(), mesh)
     return loss, {"acc": acc}
 
 
-def align_loss(model, batch, step: int = 0):
+def align_loss(model, batch, step: int = 0, mesh=None):
     sk_a, sk_b, prog_a, prog_b = batch
     va = torch.ones(sk_a.shape[:2], dtype=torch.bool, device=sk_a.device)
     vb = torch.ones(sk_b.shape[:2], dtype=torch.bool, device=sk_b.device)
     ea = model(sk_a, va)
     eb = model(sk_b, vb)
-    div = losses.softdtw_divergence_batched(ea, eb, model.cfg.gamma).mean()
-    tcc = losses.alignment_contrastive(ea, eb, prog_a, prog_b).mean()
+    div = losses.batch_mean(losses.softdtw_divergence_batched(ea, eb, model.cfg.gamma), mesh)
+    tcc = losses.batch_mean(losses.alignment_contrastive(ea, eb, prog_a, prog_b), mesh)
     return div + 10.0 * tcc, {"sdtw_div": div.detach(), "tcc": tcc.detach()}
 
 
-def error_loss(model, batch, step: int = 0):
+def error_loss(model, batch, step: int = 0, mesh=None):
     sk, phase_logits, flags, valid, ref_warp = batch
     logits = model(sk, phase_logits, valid, ref_warp)
-    loss = losses.error_bce(logits, flags)
-    acc = ((torch.sigmoid(logits) > 0.5).float() == flags).float().mean()
+    loss = losses.error_bce(logits, flags, mesh=mesh)
+    acc = losses.batch_mean(((torch.sigmoid(logits) > 0.5).float() == flags).float(), mesh)
     return loss, {"acc": acc}
 
 

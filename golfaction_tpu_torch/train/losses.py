@@ -1,5 +1,11 @@
 """Training losses for the four models.  All losses are masked
-(padding-aware) and return float32 scalars (or one value per pair)."""
+(padding-aware) and return float32 scalars (or one value per pair).
+
+With `mesh=` (a parallel.mesh.Mesh) a normalizing loss returns this data
+shard's share of the loss of the global batch: its own numerator over the
+global normalizer (valid count, joint-weight sum or batch size, summed over
+the shards).  The shards' shares add up to the global loss, and so do their
+gradients.  mesh=None computes exactly what it did without one."""
 
 from __future__ import annotations
 
@@ -7,19 +13,34 @@ import torch
 import torch.nn.functional as F
 
 from golfaction_tpu_torch.ops import softdtw
+from golfaction_tpu_torch.parallel import mesh as mesh_mod
 
 
-def heatmap_mse(pred, target, joint_weights=None):
+def _global(x: torch.Tensor, mesh) -> torch.Tensor:
+    """A normalizer of the global batch: `x` summed over the data shards."""
+    return x if mesh is None else mesh_mod.all_sum(x, mesh)
+
+
+def batch_mean(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The mean of `x` over the global batch; with a mesh, this shard's
+    share: its mean times its share of the global element count."""
+    if mesh is None:
+        return x.mean()
+    n = x.new_tensor(float(x.numel()))
+    return x.mean() * (n / _global(n, mesh))
+
+
+def heatmap_mse(pred, target, joint_weights=None, mesh=None):
     """Pose loss: per-joint MSE over heatmaps [B, K, H, W]."""
     err = (pred.float() - target.float()) ** 2
     per_joint = err.mean(dim=(-2, -1))                  # [B, K]
     if joint_weights is not None:
         per_joint = per_joint * joint_weights
-        return per_joint.sum() / joint_weights.sum().clamp(min=1.0)
-    return per_joint.mean()
+        return per_joint.sum() / _global(joint_weights.sum(), mesh).clamp(min=1.0)
+    return batch_mean(per_joint, mesh)
 
 
-def phase_cross_entropy(logits, labels, valid=None, label_smoothing: float = 0.0):
+def phase_cross_entropy(logits, labels, valid=None, label_smoothing: float = 0.0, mesh=None):
     """Segmentation loss: per-frame CE.  logits [B, T, P], labels [B, T]."""
     P = logits.shape[-1]
     logp = F.log_softmax(logits.float(), dim=-1)
@@ -29,11 +50,11 @@ def phase_cross_entropy(logits, labels, valid=None, label_smoothing: float = 0.0
     ce = -(onehot * logp).sum(-1)                       # [B, T]
     if valid is not None:
         v = valid.float()
-        return (ce * v).sum() / v.sum().clamp(min=1.0)
-    return ce.mean()
+        return (ce * v).sum() / _global(v.sum(), mesh).clamp(min=1.0)
+    return batch_mean(ce, mesh)
 
 
-def error_bce(logits, flags, fault_weights=None):
+def error_bce(logits, flags, fault_weights=None, mesh=None):
     """Multi-label fault loss.  logits [B, E], flags [B, E] in {0, 1};
     `fault_weights` [E] reweights each fault's term, so that a fault with a
     small signature is not drowned in the mean."""
@@ -41,9 +62,10 @@ def error_bce(logits, flags, fault_weights=None):
     per = (logits.clamp(min=0) - logits * flags
            + torch.log1p(torch.exp(-logits.abs())))     # [B, E]
     if fault_weights is None:
-        return per.mean()
+        return batch_mean(per, mesh)
     w = torch.as_tensor(fault_weights, dtype=torch.float32, device=per.device)
-    return (per * w).sum() / (per.shape[0] * w.sum())
+    rows = per.shape[0] if mesh is None else _global(per.new_tensor(float(per.shape[0])), mesh)
+    return (per * w).sum() / (rows * w.sum())
 
 
 def softdtw_divergence_batched(emb_a, emb_b, gamma: float):

@@ -34,7 +34,8 @@ def test_sources_found():
             "train/metrics.py", "cli.py", "demo_e2e.py", "pipeline/streaming.py",
             "pipeline/report.py", "pipeline/visualize.py", "models/precision.py",
             "utils/profiling.py", "utils/logging.py", "train/import_weights.py",
-            "bench.py"} <= found
+            "bench.py", "parallel/__init__.py", "parallel/mesh.py", "parallel/comm.py",
+            "parallel/train_step.py", "ops/softdtw_sharded.py"} <= found
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -1,6 +1,7 @@
 """Faults of the port against the JAX package, repaired: the batched,
 fixed-order `warp_by_path` against the JAX function; config fields the port
-does not honour refused where they are set; a refiner kept as an Orbax step
+does not honour refused where they are set (and `mesh`, honoured since data
+parallelism came, accepted and read); a refiner kept as an Orbax step
 directory refused rather than dropped, and one kept as npz loaded."""
 
 import dataclasses
@@ -15,6 +16,10 @@ from golfaction_tpu_torch import checkpoint, weights
 from golfaction_tpu_torch import config as tcfg
 from golfaction_tpu_torch.models.refine import KeypointRefiner
 from golfaction_tpu_torch.ops import softdtw as tsd
+from golfaction_tpu_torch.parallel import mesh as mesh_mod
+from golfaction_tpu_torch.pipeline.orchestrator import Pipeline
+from tests import torch_parallel_ranks as ranks
+from tests.torch_dp import run_ranks
 
 
 def _paths(T, Tr, lengths, seed):
@@ -88,13 +93,40 @@ def test_a_preprocess_dtype_other_than_float32_is_refused(build):
         build()
 
 
-@pytest.mark.parametrize("override", ["mesh.data_parallel=2", "mesh.model_parallel=4",
-                                      "mesh.data_axis='batch'"])
-def test_a_non_default_mesh_is_refused(override):
-    with pytest.raises(ValueError, match="mesh"):
-        tcfg.apply_overrides(tcfg.get_config(), [override])
-    with pytest.raises(ValueError, match="mesh"):
-        tcfg.PipelineConfig(mesh=tcfg.MeshConfig(data_parallel=8))
+MESH_OVERRIDES = ["mesh.data_parallel=2", "mesh.model_parallel=4", "mesh.data_axis='batch'",
+                  "mesh.data_parallel=8"]
+
+
+@pytest.fixture(scope="module")
+def meshes_at_world_4(tmp_path_factory):
+    """make_mesh of each override's mesh on every rank of a 4-rank gloo group."""
+    return run_ranks(ranks.overrides_task, 4, str(tmp_path_factory.mktemp("mesh")),
+                     (MESH_OVERRIDES,), timeout=240.0)
+
+
+@pytest.mark.parametrize("n", range(len(MESH_OVERRIDES)))
+def test_a_non_default_mesh_is_accepted_and_read_by_make_mesh(meshes_at_world_4, n):
+    """The port honours `mesh` since it has data parallelism: the config
+    takes any MeshConfig, and make_mesh lays a group out by it (raising
+    where dp x mp exceeds the group, and on the ranks a smaller mesh leaves
+    out)."""
+    cfg = tcfg.apply_overrides(tcfg.get_config(), [MESH_OVERRIDES[n]])
+    assert cfg.mesh != tcfg.MeshConfig()
+    got = [r[n] for r in meshes_at_world_4]
+    one = {"data": 1, "model": 1}
+    if n == 0:        # 2x1 over ranks 0 and 1; ranks 2 and 3 are outside it
+        assert got[:2] == [{"shape": dict(one, data=2), "data_index": r, "data_sum": 1.0,
+                            "axes": ("data", "model")} for r in range(2)]
+        assert got[2:] == [f"rank {r} lies outside the 2x1 mesh of a 4-rank group: start 2 "
+                           "processes" for r in (2, 3)]
+    elif n == 1:      # 1x4: one data shard, every rank its own data group
+        assert got == [{"shape": dict(one, model=4), "data_index": 0, "data_sum": float(r),
+                        "axes": ("data", "model")} for r in range(4)]
+    elif n == 2:      # 4x1 along an axis named "batch"
+        assert got == [{"shape": {"batch": 4, "model": 1}, "data_index": r, "data_sum": 6.0,
+                        "axes": ("batch", "model")} for r in range(4)]
+    else:
+        assert got == ["mesh 8x1 needs 8 devices, have 4"] * 4
 
 
 def test_the_defaults_are_still_accepted():
@@ -102,6 +134,40 @@ def test_the_defaults_are_still_accepted():
                                                    "mesh.data_parallel=-1", "frame_batch=16"])
     assert cfg.preprocess_dtype == "float32" and cfg.mesh == tcfg.MeshConfig()
     assert cfg.frame_batch == 16
+
+
+@pytest.mark.parametrize("override", MESH_OVERRIDES[:3])
+def test_a_pipeline_without_a_mesh_refuses_a_non_default_mesh_config(override):
+    """A config that asks for a mesh is not run on one device without a word."""
+    cfg = tcfg.apply_overrides(tcfg.get_config(), [override])
+    with pytest.raises(ValueError, match="asks for a mesh and none was given"):
+        Pipeline(cfg, device="cpu")
+
+
+def _mesh(dp, mp, data_axis="data"):
+    """A mesh's layout alone (no process group): what the Pipeline checks
+    before its first collective."""
+    return mesh_mod.Mesh(group=None, data_group=None, data_ranks=tuple(range(dp)), dp=dp,
+                         mp=mp, data_axis=data_axis, model_axis="model", rank=0,
+                         device=torch.device("cpu"), backend="gloo")
+
+
+@pytest.mark.parametrize("override, mesh", [
+    ([], _mesh(2, 2)),                                 # mp 2 against the config's 1
+    (["mesh.data_parallel=4"], _mesh(2, 1)),
+    (["mesh.data_axis='batch'"], _mesh(2, 1)),
+])
+def test_a_pipeline_refuses_a_mesh_of_another_layout_than_its_config(override, mesh):
+    cfg = tcfg.apply_overrides(tcfg.get_config(), override)
+    with pytest.raises(ValueError, match="is not the layout of"):
+        Pipeline(cfg, mesh=mesh)
+
+
+def test_a_mesh_of_the_configs_layout_passes_the_check():
+    for override, mesh in (([], _mesh(3, 1)), (["mesh.data_parallel=2"], _mesh(2, 1)),
+                           (["mesh.data_axis='batch'", "mesh.model_parallel=2"],
+                            _mesh(2, 2, "batch"))):
+        mesh_mod.check_config(mesh, tcfg.apply_overrides(tcfg.get_config(), override).mesh)
 
 
 def test_an_orbax_refiner_is_refused_naming_the_npz_conversion(tmp_path):

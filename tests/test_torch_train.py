@@ -593,10 +593,10 @@ def test_gcn_training_mode():
 
 
 def test_what_is_not_ported_raises():
-    # Data parallelism is not ported: a non-default mesh is refused.  (The
-    # TensorBoard mirror, refused here before, is ported: test_torch_utils.py.)
-    with pytest.raises(ValueError, match="data parallelism is not ported"):
-        tcfg.PipelineConfig(mesh=tcfg.MeshConfig(data_parallel=2))
+    # Everything this test once found refused is ported now: the TensorBoard
+    # mirror (test_torch_utils.py), data parallelism, whose non-default mesh
+    # the config accepts (test_torch_parallel.py), and temporal context.
+    assert tcfg.PipelineConfig(mesh=tcfg.MeshConfig(data_parallel=2)).mesh.data_parallel == 2
     three = tcfg.PoseConfig(**{**POSE, "in_frames": 3})
     s = tdata.make_swing_batch(1, 4, seed=0, image_hw=(64, 96), render=True, render_style="blob")
     # Temporal context (in_frames > 1) is ported: nine channels, not a raise.
