@@ -95,6 +95,18 @@ Phases (each prints one line; any failure exits non-zero):
                within rtol 2e-5 of the oracle and the summed band gradients
                within atol 2e-5; frames/s of two ranks against one process
                and the soft-DTW's ms a call
+ 16. cascade   `cascade_finetune` on the shipped tree at full width and its
+               dtype (4 rendered clips of 48 frames at 540x960, 16 synthetic,
+               4 refiner, 10 GCN and 10 error-head steps, calibration on one
+               clip a fault) into a temporary folder, then
+               `calibrate_thresholds --per-fault 1` on the new tree:
+               artifacts/ byte for byte unchanged, losses finite, thresholds
+               on the grid, the new tree loaded and analyzed, kernels A, B, C
+               launched, seconds by stage; then 2 refiner, 3 GCN and 3 error
+               steps at float32 from its collection on the card against the
+               CPU: every step's loss within rel 1e-4, every parameter
+               within twice the summed learning rate (AdamW's step on a
+               gradient that is float noise), the relative gaps reported
 Phases 4 (main), 5 (e2e, breakdown), 10-13 and the trainers' timed steps run
 at the configs' default dtype (bfloat16); the comparisons with the CPU
 (reference_cpu, single_peak_cpu, options_cpu, train_step_*_vs_cpu),
@@ -108,7 +120,7 @@ runs only the options phase, N times on the same clips (a record of whether
 `options_cpu` ever fails).
 
 A kernel's `launches` counts calls of its wrapper, summed over the driven
-paths (4, 6-9, 11-15; the bench counts its own, in its process, from its
+paths (4, 6-9, 11-16; the bench counts its own, in its process, from its
 headline to config 1; the parallel phase adds what its ranks counted); each path zeroes the counts just before it runs and
 reads them just after.  The GCN tail's call is four __global__ launches
 (rows, taps, gates, apply); the others' is one.  The `launches` line also
@@ -1464,6 +1476,146 @@ def bench_phase() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 16. cascade: the cascade fine-tune and the threshold calibration
+# ---------------------------------------------------------------------------
+
+CASCADE_ARGS = ("--clips", "4", "--aug", "16", "--calib-clips", "1", "--frames", "48",
+                "--hw", "540", "960", "--steps", "10", "--error-steps", "10",
+                "--refine-steps", "4")
+# The card against the CPU at float32 from one collection: steps of each stage.
+CASCADE_VS_CPU = ("--steps", "3", "--error-steps", "3", "--refine-steps", "2")
+
+
+def tree_digest(root: str) -> dict:
+    """{relative path: sha256} of every file under `root`."""
+    import hashlib
+    import os
+
+    out = {}
+    for dirpath, _, files in os.walk(root):
+        for fname in sorted(files):
+            path = os.path.join(dirpath, fname)
+            with open(path, "rb") as f:
+                out[os.path.relpath(path, root)] = hashlib.sha256(f.read()).hexdigest()
+    return out
+
+
+def _state_rel(got: dict, want: dict, norm: str = "fro") -> float:
+    """The largest relative gap of any tensor: ||got - want|| / ||want||
+    ("fro"), or its largest element gap over its largest |value| ("max")."""
+    def rel(a, b):
+        d = a.cpu() - b
+        if norm == "max":
+            return float(d.abs().max()) / max(float(b.abs().max()), 1e-12)
+        return float(d.norm()) / max(float(b.norm()), 1e-12)
+
+    return max(rel(got[k], want[k]) for k in want)
+
+
+def cascade_vs_cpu(collection: dict) -> dict:
+    """The refiner, GCN and error-head stages from the shipped weights at
+    float32 on one collection, on the card and on the CPU, the same numpy
+    generators on both: every step's loss within rel 1e-4 (so the
+    parameters after all but the last step agree where they move the
+    loss), and every parameter within twice the stage's summed learning
+    rate of the CPU's.  Where an element's gradient is float noise, AdamW
+    normalises it to a step of about the learning rate whose sign the noise
+    picks, so single elements do differ by that much: the line reports each
+    stage's largest per-tensor ||card - cpu|| / ||cpu|| (`param_rel`) and
+    largest element gap over its tensor's peak (`param_max_rel`)."""
+    from golfaction_tpu_torch import cascade_finetune as cf
+    from golfaction_tpu_torch import checkpoint, weights
+    from golfaction_tpu_torch.pipeline.orchestrator import init_params
+
+    args = cf.parse_args(["--artifacts", "artifacts", "--out", "unused", *CASCADE_ARGS,
+                          *CASCADE_VS_CPU, *(a for s in FLOAT32 for a in ("--set", s))])
+    cfg = cf.cascade_config(args)
+    params = {**init_params(cfg, 0), **weights.from_flax(checkpoint.load_params("artifacts"))}
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        got, losses, _ = cf.train_stages(args, cfg, params, collection, torch.device(dev),
+                                         lambda name, t: time.perf_counter(), log=lambda m: None)
+        runs[dev] = (got, losses, time.perf_counter() - t0)
+    (card, lc, sc), (cpu, lp, sp) = runs["cuda"], runs["cpu"]
+    loss_rel = {k: max(abs(a - b) / abs(b) for a, b in zip(lc[k], lp[k])) for k in lp}
+    param_rel = {k: _state_rel(card[k], cpu[k]) for k in ("refine", "gcn", "error")}
+    out = {"steps": {k: len(v) for k, v in lp.items()}, "loss_card": lc, "loss_cpu": lp,
+           "loss_rel": loss_rel, "param_rel": param_rel,
+           "param_max_rel": {k: _state_rel(card[k], cpu[k], "max") for k in param_rel},
+           "param_max_abs": {k: max(float((card[k][n].cpu() - cpu[k][n]).abs().max())
+                                    for n in cpu[k]) for k in param_rel},
+           "seconds_card": round(sc, 3), "seconds_cpu": round(sp, 3)}
+    check(out["steps"] == {"refine": 2, "gcn": 3, "error": 3}, f"cascade_vs_cpu: {out['steps']}")
+    check(all(v <= 1e-4 for v in loss_rel.values()),
+          f"cascade_vs_cpu: losses differ by more than rel 1e-4: {loss_rel}")
+    lr = {"refine": 1e-3, "gcn": args.lr, "error": args.error_lr or args.lr}
+    bound = {k: 2 * out["steps"][k] * lr[k] for k in lr}
+    check(all(out["param_max_abs"][k] <= bound[k] for k in bound),
+          f"cascade_vs_cpu: a parameter moved apart by more than twice the summed learning "
+          f"rate {bound}: {out['param_max_abs']}")
+    return out
+
+
+def cascade_phase(counters) -> dict:
+    """`cascade_finetune` on the shipped tree at full width and its dtype
+    (CASCADE_ARGS) into a temporary folder, then `calibrate_thresholds
+    --per-fault 1` on the new tree: artifacts/ byte for byte unchanged, every
+    loss finite, every threshold on the grid, the new tree loaded and run,
+    kernels A, B and C launched; then the stages on the card against the CPU
+    (cascade_vs_cpu).  Prints the seconds of each stage."""
+    import contextlib
+    import io
+    import tempfile
+
+    from golfaction_tpu_torch import calibrate_thresholds, cascade_finetune
+    from golfaction_tpu_torch.pipeline.orchestrator import Pipeline
+
+    before = tree_digest("artifacts")
+    grid = set(np.round(np.linspace(0.20, 0.90, 15), 6))
+    with tempfile.TemporaryDirectory() as d:
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = cascade_finetune.main(["--artifacts", "artifacts", "--out", f"{d}/tree",
+                                         *CASCADE_ARGS])
+            t1 = time.perf_counter()
+            cal = calibrate_thresholds.main(["--artifacts", f"{d}/tree", "--out", f"{d}/cal",
+                                             "--per-fault", "1"])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        pipe = Pipeline.from_artifacts(f"{d}/tree", device="cuda")
+        clip = render_clip(swing_keypoints(48, np.random.default_rng(5)), seed=5)
+        out = pipe.analyze(clip)
+        loaded = {"refiner": pipe.refine_model is not None,
+                  "finite": bool(torch.isfinite(out.error_probs).all()
+                                 and torch.isfinite(out.keypoints).all())}
+        del pipe
+    after = tree_digest("artifacts")
+    losses = res["losses"]
+    thr = {"cascade": res["thresholds_values"], "calibrate": cal["values"]}
+    say("cascade", call="cascade_finetune " + " ".join(CASCADE_ARGS),
+        stage_seconds={k: round(v, 3) for k, v in res["seconds"].items()},
+        cascade_seconds=round(t1 - t0, 3), calibrate_seconds=round(t2 - t1, 3),
+        clips=res["clips"], losses=losses, thresholds=thr, launches=launches, loaded=loaded,
+        artifacts_unchanged=before == after)
+    check(before == after, "cascade: artifacts/ changed")
+    check(all(np.isfinite(v) for stage in losses.values() for v in stage)
+          and {k: len(v) for k, v in losses.items()} == {"refine": 4, "gcn": 10, "error": 10},
+          f"cascade: losses {losses}")
+    check(all(round(v, 6) in grid for t in thr.values() for v in t.values())
+          and all(len(t) == 8 for t in thr.values()), f"cascade: a threshold off the grid {thr}")
+    check(loaded["refiner"] and loaded["finite"], f"cascade: the new tree {loaded}")
+    for k in ("preprocess", "gcn_tail", "softdtw"):
+        check(launches[k] > 0, f"cascade: kernel {k} was not launched")
+    say("cascade_vs_cpu", clips=res["clips"], **cascade_vs_cpu(res["collection"]))
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # 15. parallel: data parallelism on torch.distributed
 # ---------------------------------------------------------------------------
 
@@ -2161,6 +2313,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths["parallel"] = parallel_phase(clips, reference, counters)
     lap("parallel")
+    torch.cuda.empty_cache()
+    paths["cascade"] = cascade_phase(counters)
+    lap("cascade")
     names = ("preprocess", "gcn_tail", "softdtw", "decode", "softdtw_bwd", "requant")
     for en, k in zip(entries, names):
         en["launches"] = sum(p[k] for p in paths.values())

@@ -1,15 +1,18 @@
 """Loading the shipped weights and config from an artifacts tree, and
 writing weights back in the same form.
 
-Reads and writes the compact float16 `<root>/params/<model>.npz` checkpoints
-(flax key paths such as `params/ResBlock_0/Conv_0/kernel`), and reads
-`pose_meta.json` and `error_thresholds.json`.  Numpy and json only.
+Reads and writes the compact `<root>/params/<model>.npz` checkpoints (flax
+key paths such as `params/ResBlock_0/Conv_0/kernel`), and reads
+`pose_meta.json` and `error_thresholds.json`.  `write_artifacts` writes a
+new tree beside the one it was derived from.
 """
 
 from __future__ import annotations
 
+import glob
 import json
 import os
+import shutil
 from typing import Optional
 
 import numpy as np
@@ -177,3 +180,59 @@ def load_error_thresholds(root: str) -> Optional[np.ndarray]:
         d = json.load(f)
     return np.asarray([float(d.get(name, 0.5)) for name in cfg_mod.SWING_ERRORS],
                       np.float32)
+
+
+#: The repo's shipped tree, which nothing in the port writes into.
+REPO_ARTIFACTS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                              "artifacts")
+
+
+def _inside(path: str, root: str) -> bool:
+    path, root = os.path.realpath(path), os.path.realpath(root)
+    return path == root or path.startswith(root.rstrip(os.sep) + os.sep)
+
+
+def refuse_inside(out: str, src: str) -> None:
+    """ValueError when the output folder `out` is the tree `src`, lies
+    inside it, or lies inside the repo's `artifacts/`."""
+    for root, what in ((src, "the source tree"), (REPO_ARTIFACTS, "the repo's artifacts/")):
+        if _inside(out, root):
+            raise ValueError(f"out={out!r} lies inside {what} ({root}); write the new files "
+                             "to a folder of their own")
+
+
+def write_artifacts(out: str, src: str, params: dict, thresholds: Optional[dict] = None) -> dict:
+    """Write a new artifacts tree at `out` derived from the tree `src`.
+
+    `params` {model name: torch state_dict}: each written as
+    `<out>/params/<name>.npz` (weights.to_flax, float32: nothing is rounded).
+    `thresholds` {fault: threshold}: written as `<out>/error_thresholds.json`.
+    Everything else that `Pipeline.from_artifacts` and the cascade read is
+    copied from `src` as it is: the other `params/*.npz`, `pose_meta.json`,
+    `probe_*.json` and, without `thresholds`, `error_thresholds.json`.
+    Raises ValueError when `out` is `src`, lies inside it, or lies inside the
+    repo's `artifacts/`.  Returns {name or "thresholds": path written}."""
+    from golfaction_tpu_torch import weights
+
+    refuse_inside(out, src)
+    pdir = os.path.join(out, "params")
+    os.makedirs(pdir, exist_ok=True)
+    written = {}
+    for name, tree in weights.to_flax(params).items():
+        written[name] = save_params_npz(os.path.join(pdir, f"{name}.npz"), tree,
+                                        dtype=np.float32)
+    for path in sorted(glob.glob(os.path.join(_params_dir(src), "*.npz"))):
+        if os.path.basename(path)[:-4] not in written:
+            shutil.copyfile(path, os.path.join(pdir, os.path.basename(path)))
+    keep = ["pose_meta.json", *sorted(os.path.basename(p) for p in
+                                      glob.glob(os.path.join(src, "probe_*.json")))]
+    if thresholds is None:
+        keep.append("error_thresholds.json")
+    for fname in keep:
+        if os.path.exists(os.path.join(src, fname)):
+            shutil.copyfile(os.path.join(src, fname), os.path.join(out, fname))
+    if thresholds is not None:
+        written["thresholds"] = os.path.join(out, "error_thresholds.json")
+        with open(written["thresholds"], "w") as f:
+            json.dump(thresholds, f, indent=2)
+    return written

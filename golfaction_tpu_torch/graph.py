@@ -118,3 +118,23 @@ def build_adjacency(strategy: str = "spatial") -> np.ndarray:
     parts = np.stack([ident, inward, outward])  # [3, V, V]
     parts = parts * dinv[None, None, :]
     return parts.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def bone_pairs() -> np.ndarray:
+    """(child, parent) pairs for bone-vector features, bone[i] = x[child] -
+    x[parent]: the parent is the lowest-numbered neighbour nearer the body
+    center, and the center joints are their own parent (a zero bone).
+    int32 [V, 2] of (joint, parent)."""
+    hop = _hop_distance(NUM_JOINTS, COCO_EDGES)
+    center_dist = np.min(hop[:, list(CENTER_JOINTS)], axis=1)
+    parent = np.arange(NUM_JOINTS)
+    neighbors: dict[int, list[int]] = {v: [] for v in range(NUM_JOINTS)}
+    for i, j in COCO_EDGES:
+        neighbors[i].append(j)
+        neighbors[j].append(i)
+    for v in range(NUM_JOINTS):
+        closer = [u for u in neighbors[v] if center_dist[u] < center_dist[v]]
+        if closer:
+            parent[v] = min(closer)
+    return np.stack([np.arange(NUM_JOINTS), parent], axis=1).astype(np.int32)

@@ -50,6 +50,37 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def assemble_clip_batch(clips: Sequence[np.ndarray], n: int) -> np.ndarray:
+    """Same-shaped clips -> one host batch [n, ...], the last clip repeated
+    into the slots past the clips given."""
+    out = np.empty((n, *np.shape(clips[0])), np.asarray(clips[0]).dtype)
+    for i in range(n):
+        out[i] = clips[min(i, len(clips) - 1)]
+    return out
+
+
+def _new_models(c: PipelineConfig, refiner: bool) -> dict:
+    models = {"pose": PoseNet(c.pose), "gcn": ActionSegmentationGCN(c.gcn),
+              "align": AlignEncoder(c.align), "error": ErrorClassifier(c.error)}
+    if refiner:
+        models["refine"] = KeypointRefiner(c.refine)
+    return models
+
+
+def init_params(cfg: PipelineConfig, seed: int = 0) -> dict:
+    """{name: state_dict} of random weights drawn from one CPU generator
+    seeded with `seed`, models in the order pose, gcn, align, error[,
+    refine] (the refiner with `cfg.refine.enabled`; its zero head makes it
+    the identity)."""
+    gen = torch.Generator().manual_seed(seed)
+    models = _new_models(cfg, cfg.refine.enabled)
+    for m in models.values():
+        weights.init_random(m, gen)
+    if "refine" in models:
+        torch.nn.init.zeros_(models["refine"].head.weight)
+    return {name: m.state_dict() for name, m in models.items()}
+
+
 class Pipeline:
     """Holds the four models and runs the analysis program.
 
@@ -89,21 +120,16 @@ class Pipeline:
             raise ValueError(f"device {device} is not the mesh's device {mesh.device}")
         if mesh is not None:
             mesh_mod.check_config(mesh, c.mesh)
-        self.pose_model = PoseNet(c.pose)
-        self.gcn_model = ActionSegmentationGCN(c.gcn)
-        self.align_model = AlignEncoder(c.align)
-        self.error_model = ErrorClassifier(c.error)
-        self.models = {"pose": self.pose_model, "gcn": self.gcn_model,
-                       "align": self.align_model, "error": self.error_model}
-        self.refine_model = None
-        has_refiner = c.refine.enabled if params is None else "refine" in params
-        if has_refiner:
-            self.refine_model = self.models["refine"] = KeypointRefiner(c.refine)
         if params is None:
-            self._init_random(seed)
-        else:
-            for name, sd in params.items():
-                self.models[name].load_state_dict(sd)
+            params = self.init_params(seed)
+        self.models = _new_models(c, "refine" in params)
+        self.pose_model = self.models["pose"]
+        self.gcn_model = self.models["gcn"]
+        self.align_model = self.models["align"]
+        self.error_model = self.models["error"]
+        self.refine_model = self.models.get("refine")
+        for name, sd in params.items():
+            self.models[name].load_state_dict(sd)
         for m in self.models.values():
             m.to(self.device).eval()
             if mesh is not None:
@@ -131,12 +157,10 @@ class Pipeline:
                    error_thresholds=checkpoint.load_error_thresholds(root), logger=logger,
                    mesh=mesh)
 
-    def _init_random(self, seed: int) -> None:
-        gen = torch.Generator().manual_seed(seed)
-        for m in self.models.values():
-            weights.init_random(m, gen)
-        if self.refine_model is not None:      # a new refiner is the identity
-            torch.nn.init.zeros_(self.refine_model.head.weight)
+    def init_params(self, seed: int = 0) -> dict:
+        """The random state dicts that `Pipeline(self.cfg, params=None,
+        seed=seed)` loads (module-level `init_params`)."""
+        return init_params(self.cfg, seed)
 
     # ------------------------------------------------------------------
     # Device programs

@@ -12,15 +12,20 @@ faults.  It provides ground truth for every model in the stack:
             time-correspondence as alignment ground truth;
   * error:  fault flags matching the injected perturbations.
 
-Everything is NumPy (and OpenCV drawing) on the host.
+Everything is NumPy (and OpenCV drawing) on the host; the cascade's
+synthetic heatmap features (`synth_spread`, `synth_modes`) and the measured
+probe profiles that condition them close the module.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Iterator, Optional
 
 import numpy as np
+import torch
 
 from golfaction_tpu_torch import config as cfg_mod
 from golfaction_tpu_torch import graph
@@ -816,3 +821,270 @@ def make_swing_batch(
                     s = render_frames(s, image_hw, joint_radius=max(3.0, 0.01 * image_hw[0]), rng=rng)
         out.append(s)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Measured pose-front profiles (artifacts/probe_*.json) and the synthetic
+# heatmap features of the cascade's simulated clips
+# ---------------------------------------------------------------------------
+# The pose front passes fault deflections with joint-dependent gain (e.g.
+# chicken_wing's elbow at ~0.18, hips at ~0.4-0.7).  The error-head cascade
+# simulates this by blending faulty keypoint clips toward their clean
+# counterparts with per-joint gains; conditioning those gains on the measured
+# profile trains the head at the attenuation level it must detect at run time.
+
+
+def _profile_table(path: str, key: str) -> Optional[np.ndarray]:
+    """A probe JSON's `faults.<name>.<key>` per-joint values -> [E, 17],
+    NaN where unmeasured; None when the file does not exist."""
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        prof = json.load(f)
+    tab = np.full((len(cfg_mod.SWING_ERRORS), graph.NUM_JOINTS), np.nan, np.float32)
+    for e, name in enumerate(cfg_mod.SWING_ERRORS):
+        for js, v in prof.get("faults", {}).get(name, {}).get(key, {}).items():
+            tab[e, int(js)] = v
+    return tab
+
+
+def load_gain_profile(path: str) -> Optional[np.ndarray]:
+    """probe_arm_gain.json -> per-(fault, joint) gain table [E, 17]; NaN
+    where the probe measured nothing, None when the file does not exist."""
+    return _profile_table(path, "per_joint_gain")
+
+
+def load_spread_profile(path: str) -> Optional[np.ndarray]:
+    """probe_heatmap_spread.json -> per-(fault, joint) beta table [E, 17]:
+    the fraction of the mixture-model excess variance g(1-g)·d² that real
+    heatmaps deliver along the deflection.  NaN where unmeasured, None when
+    the file does not exist."""
+    return _profile_table(path, "per_joint_beta")
+
+
+def _max_over_active(tab: Optional[np.ndarray], error_flags, default: float) -> np.ndarray:
+    """Per joint, the largest measured value over the clip's active faults;
+    `default` where none is measured."""
+    V = tab.shape[1] if tab is not None else graph.NUM_JOINTS
+    out = np.full(V, default, np.float32)
+    if tab is None:
+        return out
+    active = np.flatnonzero(np.asarray(error_flags) > 0.5)
+    if active.size == 0:
+        return out
+    m = np.where(np.isnan(tab[active]), -np.inf, tab[active]).max(axis=0)
+    meas = np.isfinite(m)
+    out[meas] = m[meas]
+    return out
+
+
+def conditioned_beta(beta_tab: Optional[np.ndarray], error_flags: np.ndarray,
+                     default: float = 0.0) -> np.ndarray:
+    """Per-joint spread-transfer beta [17] of one simulated clip: the largest
+    measured beta over its active faults, `default` (0: no synthetic
+    spread) where nothing is measured.  Deterministic."""
+    return _max_over_active(beta_tab, error_flags, default)
+
+
+def conditioned_presence(presence_tab: Optional[np.ndarray], error_flags: np.ndarray,
+                         default: float = 0.0) -> np.ndarray:
+    """Per-joint hidden-mode presence probability [17] of one simulated
+    clip: the largest measured presence over its active faults, `default`
+    (0: noise floor only) where unmeasured.  Drift faults pass the pose
+    front unimodally, so a hidden mode is synthesized only where the probe
+    found one."""
+    return _max_over_active(presence_tab, error_flags, default)
+
+
+def conditioned_gain(rng: np.random.Generator, gain_tab: Optional[np.ndarray],
+                     error_flags: np.ndarray, broad_prob: float = 0.3,
+                     spread: tuple[float, float] = (0.6, 1.4),
+                     floor: float = 0.05) -> np.ndarray:
+    """Per-joint deflection gain [17] of one simulated clip.
+
+    Drawn U(0.35, 1); with probability 1 - broad_prob and a measured profile,
+    the joints measured for the clip's active faults take the worst (least)
+    measured gain over them, jittered by U(*spread) and clipped to
+    [floor, 1]."""
+    g = rng.uniform(0.35, 1.0, gain_tab.shape[1] if gain_tab is not None
+                    else graph.NUM_JOINTS)
+    if gain_tab is None:
+        return g
+    active = np.flatnonzero(np.asarray(error_flags) > 0.5)
+    if active.size == 0 or rng.random() < broad_prob:
+        return g
+    m = np.where(np.isnan(gain_tab[active]), np.inf, gain_tab[active]).min(axis=0)
+    meas = np.isfinite(m)
+    g[meas] = np.clip(m[meas] * rng.uniform(*spread, int(meas.sum())), floor, 1.0)
+    return g
+
+
+def synth_spread(kpts: np.ndarray, pose_cfg, image_hw: tuple[int, int],
+                 rng: np.random.Generator, defl_vec: Optional[np.ndarray] = None,
+                 gain: Optional[np.ndarray] = None, blur_iso: Optional[np.ndarray] = None,
+                 beta: Optional[np.ndarray] = None) -> np.ndarray:
+    """Simulated heatmap-spread statistics of synthetic clips, consistent
+    with the attenuation simulation: a deflection passed at gain g is a
+    merged two-component blob whose covariance along the deflection carries
+    var += g(1-g)·d², scaled by the measured transfer `beta`.
+
+    kpts      [N, T, V, 3]  attenuated keypoints fed to the head (image px)
+    defl_vec  [N, T, V, 2]  full-strength deflection (faulty - clean)
+    gain      [N, 1, V, 1]  per-joint gain applied to build kpts
+    blur_iso  [V]           measured per-joint isotropic excess variance (px²)
+    beta      [N, 1, V, 1]  measured per-joint spread transfer
+
+    Returns [N, T, V, 4] float32: (cov_xx, cov_xy, cov_yy, floor) in image
+    px².  The boxes come from ops.affine on CPU float32 tensors."""
+    from golfaction_tpu_torch.ops import affine
+
+    N, T, V = kpts.shape[:3]
+    hm_h = pose_cfg.heatmap_hw[0]
+    boxes = affine.boxes_from_keypoints(
+        torch.from_numpy(np.asarray(kpts, np.float32)), image_hw, min_size=0.1 * image_hw[0])
+    boxes = affine.box_to_center_scale(
+        boxes, aspect_ratio=pose_cfg.input_hw[1] / pose_cfg.input_hw[0])
+    s = boxes.numpy()[..., 3] / hm_h                          # [N, T]
+    floor = (pose_cfg.sigma * s) ** 2                         # px²
+    # Isotropic base: target floor + measured blur excess, jittered per
+    # (clip, joint) with a lognormal, plus mild per-frame noise.
+    if blur_iso is None:
+        blur_iso = np.zeros(V, np.float32)
+    jit_cj = rng.lognormal(0.0, 0.4, (N, 1, V))
+    jit_t = rng.lognormal(0.0, 0.15, (N, T, V))
+    iso = (floor[..., None] + blur_iso[None, None, :] * jit_cj) * jit_t
+    cov = np.zeros((N, T, V, 3), np.float32)
+    cov[..., 0] = iso
+    cov[..., 2] = iso
+    if defl_vec is not None and gain is not None:
+        g = np.broadcast_to(gain, (N, 1, V, 1))[:, 0, :, 0]   # [N, V]
+        w = np.clip(g[:, None, :] * (1.0 - g[:, None, :]), 0.0, 0.25)
+        if beta is not None:
+            b = np.broadcast_to(beta, (N, 1, V, 1))[:, 0, :, 0]
+            w = w * b[:, None, :]
+        d = defl_vec.astype(np.float32)                       # [N, T, V, 2]
+        cov[..., 0] += w * d[..., 0] * d[..., 0]
+        cov[..., 1] += w * d[..., 0] * d[..., 1]
+        cov[..., 2] += w * d[..., 1] * d[..., 1]
+    return np.concatenate(
+        [cov, floor[..., None, None].repeat(V, axis=2)], axis=-1).astype(np.float32)
+
+
+def synth_modes(kpts: np.ndarray, rng: np.random.Generator,
+                defl_vec: Optional[np.ndarray] = None, gain: Optional[np.ndarray] = None,
+                clean_rel: Optional[np.ndarray] = None, clean_sep: Optional[np.ndarray] = None,
+                miss_prob: float = 0.15, fault_miss_prob: float = 0.05,
+                presence: Optional[np.ndarray] = None, canon_frac: Optional[np.ndarray] = None,
+                present_mask: Optional[np.ndarray] = None,
+                side_canon: Optional[np.ndarray] = None) -> np.ndarray:
+    """Simulated secondary-mode features (dx, dy, rel_mass, sep) [N, T, V, 4]
+    in image px of synthetic clips, consistent with the attenuation
+    simulation.
+
+    Everywhere: a noise runner-up at the measured floor (`clean_rel`,
+    `clean_sep` [V], per-(clip, joint) lognormal levels with per-frame
+    jitter), absent on a frame with probability `miss_prob`.  Where a
+    deflection `defl_vec` [N, T, V, 2] was applied, the suppressed mode:
+      * with `present_mask` and `side_canon` [N, T, V] bool (the bimodal
+        flicker model; both or neither): the runner-up is the other mode at
+        the full ±d, where `present_mask` holds;
+      * else with `gain` [N, 1, V, 1] (the smooth blend): at +(1-g)·d on
+        canonical-dominated frames (probability `canon_frac` [N, 1, V],
+        default 1) and -g·d otherwise, present with probability `presence`
+        [N, 1, V] (default 1 - fault_miss_prob).
+    Raises ValueError when exactly one of present_mask / side_canon is
+    given."""
+    if (present_mask is None) != (side_canon is None):
+        raise ValueError("synth_modes: present_mask and side_canon go together (the flicker "
+                         "model needs both); got only "
+                         + ("present_mask" if side_canon is None else "side_canon"))
+    N, T, V = kpts.shape[:3]
+    if clean_rel is None:
+        clean_rel = np.full(V, 0.10, np.float32)
+    if clean_sep is None:
+        clean_sep = np.full(V, 4.0, np.float32)
+
+    # Noise runner-up everywhere, temporally coherent like synth_spread's.
+    lvl_rel = clean_rel[None, None, :] * rng.lognormal(0.0, 0.5, (N, 1, V))
+    lvl_sep = clean_sep[None, None, :] * rng.lognormal(0.0, 0.4, (N, 1, V))
+    rel = np.clip(lvl_rel * rng.lognormal(0.0, 0.25, (N, T, V)), 0.0, 1.5)
+    sep = lvl_sep * rng.lognormal(0.0, 0.2, (N, T, V))
+    ang = rng.uniform(0.0, 2 * np.pi, (N, T, V))
+    off = np.stack([sep * np.cos(ang), sep * np.sin(ang)], axis=-1)
+    present = rng.uniform(size=(N, T, V)) >= miss_prob
+
+    if defl_vec is not None and (gain is not None or present_mask is not None):
+        d = defl_vec.astype(np.float32)                       # [N, T, V, 2]
+        if present_mask is not None:
+            # Flicker model: the runner-up is the other mode at full ±d.
+            sc = np.asarray(side_canon, bool)[..., None]
+            hidden = np.where(sc, d, -d)
+            f_present = np.asarray(present_mask, bool)
+        else:
+            g = np.broadcast_to(gain, (N, 1, V, 1)).astype(np.float32)
+            if canon_frac is None:
+                cf = np.ones((N, 1, V), np.float32)
+            else:
+                cf = np.broadcast_to(np.asarray(canon_frac, np.float32), (N, 1, V))
+            sc = rng.uniform(size=(N, T, V, 1)) < cf[..., None]
+            hidden = np.where(sc, (1.0 - g) * d, -g * d)
+            if presence is None:
+                pres_p = np.full((N, 1, V), 1.0 - fault_miss_prob, np.float32)
+            else:
+                pres_p = np.broadcast_to(np.asarray(presence, np.float32), (N, 1, V))
+            f_present = rng.uniform(size=(N, T, V)) < pres_p
+        mag = np.linalg.norm(hidden, axis=-1)                 # [N, T, V]
+        is_fault = mag > 2.0                                  # px threshold
+        jit = rng.lognormal(0.0, 0.25, (N, T, V, 1))
+        f_off = hidden * jit + rng.normal(0.0, 1.0, hidden.shape)
+        f_sep = np.linalg.norm(f_off, axis=-1)
+        f_rel = np.clip(rng.uniform(0.3, 0.95, (N, 1, V))
+                        * rng.lognormal(0.0, 0.15, (N, T, V)), 0.05, 1.5)
+        # Where the hidden mode is absent the joint keeps the noise floor:
+        # the run-time NMS always returns some runner-up peak.
+        take = is_fault & f_present
+        off = np.where(take[..., None], f_off, off)
+        sep = np.where(take, f_sep, sep)
+        rel = np.where(take, f_rel, rel)
+
+    m = present[..., None].astype(np.float32)
+    return np.concatenate([off * m, (rel * present)[..., None], (sep * present)[..., None]],
+                          axis=-1).astype(np.float32)
+
+
+def load_mode_profile(path: str) -> Optional[tuple[np.ndarray, np.ndarray]]:
+    """probe_heatmap_modes.json -> per-(fault, joint) tables (presence
+    [E, 17], canon_frac [E, 17]): the fraction of faulted frames where the
+    true joint survives as a separable mode (`true_mode_present_frac`; 0.0
+    when the probe found no well-separated frame), and the fraction whose
+    argmax sits nearer the canonical ghost (`peak_nearer_canon_frac`).
+    Takes the merged form {"faults": {name: {"per_joint_presence": ...,
+    "per_joint_canon_frac": ...}}} or one fault's probe output
+    ({"summary": ..., "frames": ...}).  NaN where unmeasured; None when the
+    file does not exist."""
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        prof = json.load(f)
+    E, V = len(cfg_mod.SWING_ERRORS), graph.NUM_JOINTS
+    pres = np.full((E, V), np.nan, np.float32)
+    canon = np.full((E, V), np.nan, np.float32)
+    faults = prof.get("faults")
+    if faults is None and "summary" in prof:
+        s = prof["summary"]
+        if s.get("fault") in cfg_mod.SWING_ERRORS:
+            joints = sorted({f["joint"] for f in prof.get("frames", [])})
+            frac = s.get("true_mode_present_frac")
+            frac = 0.0 if frac is None else frac
+            cf = s.get("peak_nearer_canon_frac")
+            entry = {"per_joint_presence": {str(j): frac for j in joints}}
+            if cf is not None:
+                entry["per_joint_canon_frac"] = {str(j): cf for j in joints}
+            faults = {s["fault"]: entry}
+    for e, name in enumerate(cfg_mod.SWING_ERRORS):
+        entry = (faults or {}).get(name, {})
+        for js, pv in entry.get("per_joint_presence", {}).items():
+            pres[e, int(js)] = pv
+        for js, cv in entry.get("per_joint_canon_frac", {}).items():
+            canon[e, int(js)] = cv
+    return pres, canon

@@ -68,6 +68,22 @@ def error_bce(logits, flags, fault_weights=None, mesh=None):
     return (per * w).sum() / (rows * w.sum())
 
 
+def softdtw_divergence(emb_a, emb_b, gamma: float):
+    """Soft-DTW divergence of one pair of embedding sequences [Ta, D],
+    [Tb, D] -> []: sdtw(a, b) - (sdtw(a, a) + sdtw(b, b)) / 2, three
+    `softdtw_cost` calls (kernels C and E on the card)."""
+    def cost(x, y):
+        return softdtw.softdtw_cost(softdtw.pairwise_sqdist(x, y)[None], gamma)[0]
+
+    return cost(emb_a, emb_b) - 0.5 * (cost(emb_a, emb_a) + cost(emb_b, emb_b))
+
+
+def softdtw_divergence_batch(emb_a, emb_b, gamma: float):
+    """`softdtw_divergence` over a batch [B, T, D] -> [B] (the JAX package's
+    vmapped name for `softdtw_divergence_batched`)."""
+    return softdtw_divergence_batched(emb_a, emb_b, gamma)
+
+
 def softdtw_divergence_batched(emb_a, emb_b, gamma: float):
     """Soft-DTW divergence of embedding sequences emb [B, T, D] -> [B]:
     div(a, b) = sdtw(a, b) - (sdtw(a, a) + sdtw(b, b)) / 2, zero when the

@@ -1,6 +1,7 @@
-"""Value types flowing out of the pipeline, holding torch tensors.
+"""Value types flowing through the pipeline, holding torch tensors.
 
 Shape conventions (T is padded to a length bucket):
+  frames:    [T, H, W, 3] uint8         NHWC
   keypoints: [T, V, 3]                  (x, y, score) in source-image pixels
   phases:    [T] int32                  per-frame swing-phase label (-1 = pad)
   path:      [Ta + Tb - 1, 2] int32     alignment path (padded with -1)
@@ -21,6 +22,21 @@ def to_numpy(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+@dataclasses.dataclass
+class Clip:
+    """A decoded video clip with its per-frame person boxes; `valid` marks
+    real frames against bucket padding."""
+
+    frames: torch.Tensor                # [T, H, W, 3]
+    boxes: torch.Tensor                 # [T, 4] person box (cx, cy, w, h) px
+    valid: torch.Tensor                 # [T] bool
+    fps: float = 30.0
+
+    @property
+    def num_frames(self) -> int:
+        return self.frames.shape[0]
 
 
 @dataclasses.dataclass

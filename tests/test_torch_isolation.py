@@ -35,7 +35,8 @@ def test_sources_found():
             "pipeline/report.py", "pipeline/visualize.py", "models/precision.py",
             "utils/profiling.py", "utils/logging.py", "train/import_weights.py",
             "bench.py", "parallel/__init__.py", "parallel/mesh.py", "parallel/comm.py",
-            "parallel/train_step.py", "ops/softdtw_sharded.py"} <= found
+            "parallel/train_step.py", "ops/softdtw_sharded.py", "cascade_finetune.py",
+            "calibrate_thresholds.py"} <= found
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
