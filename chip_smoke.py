@@ -107,6 +107,25 @@ Phases (each prints one line; any failure exits non-zero):
                CPU: every step's loss within rel 1e-4, every parameter
                within twice the summed learning rate (AdamW's step on a
                gradient that is float noise), the relative gaps reported
+ 17. retrain_chain  the ends of the retraining chain, writing into temporary
+               folders only (artifacts/ byte for byte unchanged):
+               `train_eval --eval-only` on a copy of the shipped checkpoints
+               (its four evaluations beside artifacts/metrics.json, a
+               record; A, B, C, D launched), a short `train_eval` run at the
+               default widths (8 steps, 2 pose steps, a pose pool of 32
+               clips; finite losses, metrics.json's keys, four npz files the
+               pipeline loads and runs, C and E launched once a train_align
+               step and C once more for the evaluation's hard paths), the
+               three probes on the shipped tree at one pair (their gains
+               beside the committed profiles, a record), `promote_artifacts`
+               of the trained tree with the probes' profiles and phase 13's
+               demo_e2e metrics as demo/ into a copy of artifacts/ (a gate
+               miss exits 1 and writes nothing; float16 checkpoints, the
+               sidecars, demo/; a destination step folder refused; the
+               promoted tree runs), `import_pose` of an MMPose-style state
+               dict at full width (coverage 1, the imported tree runs), and
+               `softdtw_bwd_bench` at B 64 and 192, T 128, with kernel E's
+               two-launch layout timed alone beside its bound
 Phases 4 (main), 5 (e2e, breakdown), 10-13 and the trainers' timed steps run
 at the configs' default dtype (bfloat16); the comparisons with the CPU
 (reference_cpu, single_peak_cpu, options_cpu, train_step_*_vs_cpu),
@@ -120,7 +139,7 @@ runs only the options phase, N times on the same clips (a record of whether
 `options_cpu` ever fails).
 
 A kernel's `launches` counts calls of its wrapper, summed over the driven
-paths (4, 6-9, 11-16; the bench counts its own, in its process, from its
+paths (4, 6-9, 11-17; the bench counts its own, in its process, from its
 headline to config 1; the parallel phase adds what its ranks counted); each path zeroes the counts just before it runs and
 reads them just after.  The GCN tail's call is four __global__ launches
 (rows, taps, gates, apply); the others' is one.  The `launches` line also
@@ -1365,12 +1384,13 @@ def _leaf_keys(tree) -> dict:
     return {k: _leaf_keys(v) if isinstance(v, dict) else None for k, v in tree.items()}
 
 
-def e2e_score_phase(counters) -> dict:
+def e2e_score_phase(counters) -> tuple[dict, dict]:
     """demo_e2e at small counts (2 clips, one per fault plus two clean, one
     clip per held-out family, one jitter clip; 48 frames at 540x960) into
     a temporary directory: the JSON keys of the JAX script's shipped result
     (artifacts/demo/e2e_metrics.json), every score finite in [0, 1], the
-    comparison video written."""
+    comparison video written.  Returns the launches and the metrics (the
+    retrain_chain phase promotes them as demo/)."""
     import contextlib
     import io
     import os
@@ -1410,7 +1430,7 @@ def e2e_score_phase(counters) -> dict:
     check(video > 0, "e2e_score: no comparison video")
     for k in ("preprocess", "gcn_tail", "softdtw"):
         check(launches[k] > 0, f"e2e_score: kernel {k} was not launched")
-    return launches
+    return launches, got
 
 
 def logger_check(pipe, clip, boxes) -> None:
@@ -1616,6 +1636,348 @@ def cascade_phase(counters) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 17. retrain_chain: train_eval, the probes, promote, import_pose, the bwd bench
+# ---------------------------------------------------------------------------
+
+# A short training run at the default widths and the script's 160-clip pose
+# pool.  train_align takes half the steps.
+RETRAIN_STEPS = 8
+RETRAIN_ARGS = ("--steps", str(RETRAIN_STEPS), "--pose-steps", "2", "--eval-clips", "8")
+PROBE_ARGS = ("--artifacts", "artifacts", "--pairs", "1")
+BWD_POINTS = (64, 192)          # B at T = 128: the JAX script's two recorded points
+BWD_ARGS = ("--T", "128", "--iters", "3", "--scan-timeout", "30")
+
+
+def _counted(counters) -> dict:
+    torch.cuda.synchronize()
+    return {k: fn.launches for k, fn in counters.items()}
+
+
+def _quiet(main, argv):
+    """main(argv) with its stdout swallowed (its JSON goes into our lines)."""
+    import contextlib
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        return main(argv)
+
+
+def mmpose_state_dict(cfg, seed: int = 0) -> dict:
+    """A pose checkpoint as MMPose writes one, built in memory (the layout of
+    tests/test_torch_import_weights.py): in definition order, backbone
+    convolutions (OIHW) each with a BatchNorm (weight, bias, running
+    statistics, num_batches_tracked), the head's ConvTranspose2d (IOHW) each
+    with its BatchNorm, then the final 1x1 convolution and its bias."""
+    from golfaction_tpu_torch.models.pose import PoseNet
+    from golfaction_tpu_torch.train import import_weights
+
+    rng = np.random.default_rng(seed)
+    shapes = {n: tuple(t.shape) for n, t in PoseNet(cfg).state_dict().items()}
+    sd = {}
+    for i, (name, _) in enumerate(import_weights.pose_param_order(cfg)):
+        if name.endswith(".bias") and not name.startswith("final"):
+            continue                                   # written with its BatchNorm
+        shape = shapes[name]
+        if len(shape) == 1 and not name.startswith("final"):
+            prefix = f"backbone.layer{i}.bn"
+            sd[f"{prefix}.weight"] = torch.from_numpy(rng.normal(1, 0.1, shape).astype("f4"))
+            sd[f"{prefix}.bias"] = torch.from_numpy(rng.normal(0, 0.1, shape).astype("f4"))
+            sd[f"{prefix}.running_mean"] = torch.from_numpy(rng.normal(0, 1, shape).astype("f4"))
+            sd[f"{prefix}.running_var"] = torch.from_numpy(rng.uniform(0.5, 2, shape).astype("f4"))
+            sd[f"{prefix}.num_batches_tracked"] = torch.tensor(1000)
+        else:
+            key = f"keypoint_head.layer{i}.{name.split('.')[-1]}"
+            sd[key] = torch.from_numpy(rng.normal(0, 0.05, shape).astype("f4"))
+    return sd
+
+
+def _bytes(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def _finite_analyze(root: str) -> dict:
+    """Pipeline.from_artifacts(root) on the card, one rendered 48-frame clip
+    analyzed: {"finite", "keypoints" shape}."""
+    from golfaction_tpu_torch.pipeline.orchestrator import Pipeline
+
+    pipe = Pipeline.from_artifacts(root, device="cuda")
+    res = pipe.analyze(render_clip(swing_keypoints(48, np.random.default_rng(11)), seed=11))
+    return {"finite": bool(torch.isfinite(res.keypoints).all()
+                           and torch.isfinite(res.error_probs).all()),
+            "keypoints": list(res.keypoints.shape)}
+
+
+def retrain_eval_and_train(d: str, counters, seconds: dict, paths: dict) -> str:
+    """train_eval --eval-only on a copy of the shipped checkpoints, then a
+    short training run (--skip pose, then pose alone into the same tree):
+    returns the trained tree."""
+    import os
+    import shutil
+
+    from golfaction_tpu_torch import train_eval
+
+    shipped = f"{d}/shipped"
+    shutil.copytree("artifacts/params", f"{shipped}/params")
+    with open("artifacts/metrics.json") as f:
+        recorded = json.load(f)
+    _zero(counters)
+    t0 = time.perf_counter()
+    ev = _quiet(train_eval.main, ["--out", shipped, "--eval-only"])["metrics"]
+    seconds["eval_only"] = time.perf_counter() - t0
+    paths["retrain_eval_only"] = _counted(counters)
+    numbers = {"pose.eval_pck05": (ev["pose"]["eval_pck05"], recorded["pose"]["eval_pck05"]),
+               "gcn.eval_f1": (ev["gcn"]["eval_f1"], recorded["gcn"]["eval_f1"]),
+               "error.eval.f1": (ev["error"]["eval"]["f1"], recorded["error"]["eval"]["f1"]),
+               "error.eval_with_ref.f1": (ev["error"]["eval_with_ref"]["f1"],
+                                          recorded["error"]["eval_with_ref"]["f1"]),
+               "align.eval_progress_err": (ev["align"]["eval_progress_err"],
+                                           recorded["align"]["eval_progress_err"])}
+    say("retrain_eval_only", seconds=round(seconds["eval_only"], 3),
+        port_vs_metrics_json=numbers, launches=paths["retrain_eval_only"],
+        note="a record: the shipped GCN and error head were fine-tuned after "
+             "artifacts/metrics.json was written")
+    for k in ("preprocess", "gcn_tail", "softdtw", "decode"):
+        check(paths["retrain_eval_only"][k] > 0, f"retrain_eval_only: kernel {k} not launched")
+
+    tree = f"{d}/train"
+    _zero(counters)
+    t0 = time.perf_counter()
+    first = _quiet(train_eval.main, ["--out", tree, "--skip", "pose", *RETRAIN_ARGS])
+    seconds["train_gcn_error_align"] = time.perf_counter() - t0
+    skel = _counted(counters)
+    _zero(counters)
+    t0 = time.perf_counter()
+    res = _quiet(train_eval.main, ["--out", tree, "--skip", "gcn", "error", "align",
+                                   *RETRAIN_ARGS])
+    seconds["train_pose"] = time.perf_counter() - t0
+    pose_launches = _counted(counters)
+    paths["retrain_train"] = {k: skel[k] + pose_launches[k] for k in skel}
+    m = res["metrics"]
+    align_steps = RETRAIN_STEPS // 2
+    losses = {k: [h["loss"] for h in m[k]["history"]] for k in ("pose", "gcn", "align", "error")}
+    keys = {"pose": {"history", "eval_pck05", "checkpoint"},
+            "gcn": {"history", "eval_acc", "eval_f1", "checkpoint"},
+            "error": {"history", "eval", "eval_with_ref", "checkpoint"},
+            "align": {"history", "eval_progress_err", "checkpoint"}}
+    loaded = _finite_analyze(tree)
+    say("retrain_train", call="train_eval " + " ".join(RETRAIN_ARGS),
+        seconds={k: round(v, 3) for k, v in {**first["seconds"], **res["seconds"]}.items()},
+        losses=losses, metrics={k: {kk: vv for kk, vv in v.items() if kk != "history"}
+                                if isinstance(v, dict) else v for k, v in m.items()},
+        launches_skeleton_models=skel, launches_pose=pose_launches, loaded=loaded)
+    check(all(np.isfinite(v) for vs in losses.values() for v in vs), f"retrain: losses {losses}")
+    check(all(set(m[k]) == ks for k, ks in keys.items()) and "wall_time_s" in m,
+          f"retrain: metrics.json keys {({k: sorted(v) for k, v in m.items() if isinstance(v, dict)})}")
+    check(sorted(os.listdir(f"{tree}/params")) == ["align.npz", "error.npz", "gcn.npz",
+                                                   "pose.npz"], "retrain: npz files")
+    check(loaded["finite"], f"retrain: the new tree {loaded}")
+    # One forward wavefront and one backward a train_align step (4 of them),
+    # one wavefront for the evaluation's hard paths.
+    check(skel["softdtw_bwd"] == align_steps and skel["softdtw"] == align_steps + 1,
+          f"retrain: train_align launched C {skel['softdtw']} and E {skel['softdtw_bwd']} "
+          f"times for {align_steps} steps")
+    for k in ("preprocess", "decode"):
+        check(pose_launches[k] > 0, f"retrain: kernel {k} not launched on the pose training")
+    check(skel["gcn_tail"] > 0, "retrain: kernel B not launched by the GCN evaluation")
+    return tree
+
+
+def retrain_probes(d: str, staged: str, counters, seconds: dict, paths: dict) -> None:
+    """The three probes on the shipped tree at --pairs 1 and their default
+    frames and size, each written into the staged tree; their gains beside
+    the committed profiles."""
+    from golfaction_tpu_torch import probe_arm_gain, probe_heatmap_modes, probe_heatmap_spread
+
+    committed = {}
+    for name in ("probe_arm_gain", "probe_heatmap_modes", "probe_heatmap_spread"):
+        with open(f"artifacts/{name}.json") as f:
+            committed[name] = json.load(f)
+    _zero(counters)
+    t0 = time.perf_counter()
+    arm = _quiet(probe_arm_gain.main, [*PROBE_ARGS, "--out", f"{staged}/probe_arm_gain.json"])
+    seconds["probe_arm_gain"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    modes = _quiet(probe_heatmap_modes.main, [*PROBE_ARGS, "--out",
+                                              f"{staged}/probe_heatmap_modes.json"])
+    seconds["probe_heatmap_modes"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    spread = _quiet(probe_heatmap_spread.main, [*PROBE_ARGS, "--out",
+                                                f"{staged}/probe_heatmap_spread.json"])
+    seconds["probe_heatmap_spread"] = time.perf_counter() - t0
+    paths["retrain_probes"] = launches = _counted(counters)
+    c_arm, c_modes, c_spread = (committed[k] for k in ("probe_arm_gain", "probe_heatmap_modes",
+                                                       "probe_heatmap_spread"))
+    say("retrain_probes", pairs=1, frames=48, hw=[540, 960],
+        seconds={k: round(seconds[k], 3) for k in ("probe_arm_gain", "probe_heatmap_modes",
+                                                   "probe_heatmap_spread")},
+        arm_mean_gain=[arm["arm_mean_gain"], c_arm["arm_mean_gain"]],
+        drift_mean_gain=[arm["drift_mean_gain"], c_arm["drift_mean_gain"]],
+        mean_gain_by_fault={f: [e["mean_gain"], c_arm["faults"][f]["mean_gain"]]
+                            for f, e in arm["faults"].items()},
+        modes_chicken_wing=[modes and modes["summary"],
+                            c_modes["faults"].get("chicken_wing")],
+        spread={f: {"port": {k: e.get(k) for k in ("beta", "gain_dev_only", "gain_combo_lopo",
+                                                   "excess_auc_vs_twin")},
+                    "committed": {k: c_spread["faults"][f].get(k)
+                                  for k in ("beta", "gain_dev_only", "gain_combo_lopo",
+                                            "excess_auc_vs_twin")}}
+                for f, e in spread["faults"].items()},
+        launches=launches, note="a record beside the committed profiles (4 pairs, "
+                                "from the JAX package), not a bar")
+    check(list(arm) == list(c_arm) and list(arm["faults"]) == list(c_arm["faults"]),
+          "retrain_probes: the arm-gain JSON's layout differs from the committed one")
+    check(list(spread) == list(c_spread) and list(spread["faults"]) == list(c_spread["faults"]),
+          "retrain_probes: the spread JSON's layout differs from the committed one")
+    check(all(np.isfinite(e["mean_gain"]) for e in arm["faults"].values()),
+          "retrain_probes: a gain is not finite")
+    for k in ("preprocess", "gcn_tail", "decode"):
+        check(launches[k] > 0, f"retrain_probes: kernel {k} not launched")
+
+
+def retrain_promote(d: str, staged: str, e2e: dict, seconds: dict) -> dict:
+    """Promote the trained tree, with the probes' profiles, a pose_meta.json
+    and the e2e_score phase's demo_e2e metrics as demo/, into a copy of
+    artifacts/: the gate's pass and miss, the float16 checkpoints, the
+    sidecars, demo/, and a destination with a step folder refused."""
+    import os
+    import shutil
+
+    from golfaction_tpu_torch import checkpoint, promote_artifacts
+
+    checkpoint.save_pose_meta(staged, sigma=2.0)
+    os.makedirs(f"{staged}/demo")
+    with open(f"{staged}/demo/e2e_metrics.json", "w") as f:
+        json.dump(e2e, f, indent=1)
+    overall = float(e2e["error_detection"]["f1"])
+    dest = f"{d}/dest"
+    shutil.copytree("artifacts", dest)
+    out = {}
+    try:
+        _quiet(promote_artifacts.main, ["--staged", staged, "--artifacts", dest,
+                                        "--gate", f"overall={overall + 0.01!r}"])
+        out["miss_exit"] = 0
+    except SystemExit as e:
+        out["miss_exit"] = e.code
+    out["unchanged_after_miss"] = tree_digest(dest) == tree_digest("artifacts")
+    t0 = time.perf_counter()
+    res = _quiet(promote_artifacts.main, ["--staged", staged, "--artifacts", dest,
+                                          "--gate", f"overall={overall!r}"])
+    seconds["promote"] = time.perf_counter() - t0
+    fp16 = {}
+    for name in ("pose", "gcn", "error", "align"):
+        with np.load(f"{dest}/params/{name}.npz") as z, np.load(f"{staged}/params/{name}.npz") as s:
+            fp16[name] = (all(z[k].dtype == np.float16 for k in z.files)
+                          and all(np.array_equal(z[k], s[k].astype(np.float16)) for k in s.files))
+    sidecars = {f: _bytes(f"{dest}/{f}") == _bytes(f"{staged}/{f}") for f in ("pose_meta.json", "probe_arm_gain.json", "probe_heatmap_modes.json",
+                          "probe_heatmap_spread.json", "demo/e2e_metrics.json")}
+    kept = {f: _bytes(f"{dest}/{f}") == _bytes(f"artifacts/{f}")
+            for f in ("error_thresholds.json", "demo/compare.mp4")}
+    refused = f"{d}/dest_orbax"
+    shutil.copytree(dest, refused)
+    os.makedirs(f"{refused}/params/gcn/step_00000001")
+    try:
+        promote_artifacts.main(["--staged", staged, "--artifacts", refused])
+        out["step_dir_refused"] = False
+    except ValueError as e:
+        out["step_dir_refused"] = "params/gcn/step_00000001" in str(e)
+    loaded = _finite_analyze(dest)
+    say("retrain_promote", gate_overall=overall, promoted=res["written"], float16=fp16,
+        sidecars_copied=sidecars, kept_from_destination=kept, loaded=loaded,
+        seconds=round(seconds["promote"], 3), **out)
+    check(out["miss_exit"] == 1 and out["unchanged_after_miss"],
+          f"retrain_promote: a gate miss {out}")
+    check(all(fp16.values()) and all(sidecars.values()) and all(kept.values()),
+          f"retrain_promote: {fp16} {sidecars} {kept}")
+    check(out["step_dir_refused"], "retrain_promote: a destination step folder was not refused")
+    check(loaded["finite"], f"retrain_promote: the promoted tree {loaded}")
+    return out
+
+
+def retrain_import(d: str, counters, seconds: dict, paths: dict) -> None:
+    """An MMPose-style state dict at the pose net's full width, saved as a
+    .pth, imported by import_pose and run through Pipeline.from_artifacts."""
+    from golfaction_tpu_torch import config as cfg_mod
+    from golfaction_tpu_torch import import_pose
+
+    sd = mmpose_state_dict(cfg_mod.PoseConfig())
+    torch.save(sd, f"{d}/pose.pth")
+    t0 = time.perf_counter()
+    line = _quiet(import_pose.main, [f"{d}/pose.pth", "--out", f"{d}/imported"])
+    seconds["import_pose"] = time.perf_counter() - t0
+    _zero(counters)
+    loaded = _finite_analyze(f"{d}/imported")
+    paths["retrain_import"] = _counted(counters)
+    say("retrain_import", tensors=len(sd), imported=line["imported"], coverage=line["coverage"],
+        seconds=round(seconds["import_pose"], 3), loaded=loaded,
+        launches=paths["retrain_import"])
+    check(line["coverage"] == 1.0 and loaded["finite"], f"retrain_import: {line} {loaded}")
+
+
+def retrain_bwd_bench(counters, seconds: dict, paths: dict) -> None:
+    """softdtw_bwd_bench at B 64 and 192, T 128 (kernel E's two-launch
+    layout): first call and step seconds of both paths; then E alone at
+    those shapes by events and in a graph, beside its bound, and C's
+    forward at the same shapes in a graph."""
+    from golfaction_tpu_torch import softdtw_bwd_bench
+    from golfaction_tpu_torch.ops import softdtw
+
+    _zero(counters)
+    t0 = time.perf_counter()
+    runs = [_quiet(softdtw_bwd_bench.main, ["--B", str(B), *BWD_ARGS]) for B in BWD_POINTS]
+    seconds["softdtw_bwd_bench"] = time.perf_counter() - t0
+    paths["retrain_bwd_bench"] = launches = _counted(counters)
+    say("retrain_bwd_bench", runs=runs, launches=launches,
+        seconds=round(seconds["softdtw_bwd_bench"], 3))
+    for r in runs:
+        check(r["backward_geometry"]["fits"] is False
+              and all(r[p]["step_s"] and np.isfinite(r[p]["step_s"]) for p in ("kernel", "plain")),
+              f"retrain_bwd_bench: {r}")
+    calls = 1 + int(BWD_ARGS[BWD_ARGS.index("--iters") + 1])
+    check(launches["softdtw"] == launches["softdtw_bwd"] == len(BWD_POINTS) * calls,
+          f"retrain_bwd_bench: {launches}")
+    for B in BWD_POINTS:
+        ea, eb = softdtw_bwd_bench.inputs(B, 128, 32, "cuda")
+        D = softdtw.pairwise_sqdist(ea, eb).contiguous()
+        R = softdtw.wavefront(D, 0.1)
+        geo = softdtw.backward_geometry(B, 128, 128)
+        nb, ops = softdtw_bwd_bytes_ops(B, 128, 128)
+        bms, by = bound(nb, ops)
+        gms = graph_ms(lambda: softdtw.softdtw_backward(D, R, 0.1))
+        say("time_softdtw_bwd_two_launch", shape=[B, 128, 128], gamma=0.1,
+            layout={"rows": geo.rows, "warps": geo.warps, "tables": geo.tables,
+                    "fits": geo.fits, "ring": geo.ring},
+            ms=cuda_ms(lambda: softdtw.softdtw_backward(D, R, 0.1)), graph_ms=gms,
+            ns_per_diagonal=gms / 255 * 1e6, bound_ms=bms, bound_by=by,
+            plain_ms=cuda_ms(lambda: softdtw.softdtw_backward_plain(D, R, 0.1), reps=3,
+                             warmup=1),
+            forward_graph_ms=graph_ms(lambda: softdtw.wavefront(D, 0.1)))
+
+
+def retrain_chain_phase(counters, e2e: dict) -> dict:
+    """The retraining chain's ends (phase 17): train_eval (evaluation of the
+    shipped checkpoints, a short training run), the three probes on the
+    shipped tree, promote, import_pose and softdtw_bwd_bench, all writing
+    into temporary folders; artifacts/ byte for byte unchanged.  Returns the
+    launches of each driven path."""
+    import tempfile
+
+    before = tree_digest("artifacts")
+    seconds, paths = {}, {}
+    with tempfile.TemporaryDirectory() as d:
+        staged = retrain_eval_and_train(d, counters, seconds, paths)
+        retrain_probes(d, staged, counters, seconds, paths)
+        retrain_promote(d, staged, e2e, seconds)
+        retrain_import(d, counters, seconds, paths)
+        retrain_bwd_bench(counters, seconds, paths)
+    unchanged = tree_digest("artifacts") == before
+    say("retrain_chain", seconds={k: round(v, 3) for k, v in seconds.items()},
+        artifacts_unchanged=unchanged, launches=paths)
+    check(unchanged, "retrain_chain: artifacts/ changed")
+    return paths
+
+
+# ---------------------------------------------------------------------------
 # 15. parallel: data parallelism on torch.distributed
 # ---------------------------------------------------------------------------
 
@@ -1676,6 +2038,7 @@ def _fields(res) -> dict:
 
 
 def _zero(counters) -> None:
+    torch.cuda.synchronize()
     for fn in counters.values():
         fn.launches = 0
 
@@ -2291,7 +2654,7 @@ def main() -> int:
     lap("stream_cli")
     del pipe
     torch.cuda.empty_cache()
-    paths["e2e_score"] = e2e_score_phase(counters)
+    paths["e2e_score"], e2e_metrics = e2e_score_phase(counters)
     lap("e2e_score")
 
     # 6-9. the single-peak pipeline, the trainers, the int8 path, the options ----
@@ -2316,6 +2679,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths["cascade"] = cascade_phase(counters)
     lap("cascade")
+    torch.cuda.empty_cache()
+    paths.update(retrain_chain_phase(counters, e2e_metrics))
+    lap("retrain_chain")
     names = ("preprocess", "gcn_tail", "softdtw", "decode", "softdtw_bwd", "requant")
     for en, k in zip(entries, names):
         en["launches"] = sum(p[k] for p in paths.values())

@@ -2,9 +2,16 @@
 writing weights back in the same form.
 
 Reads and writes the compact `<root>/params/<model>.npz` checkpoints (flax
-key paths such as `params/ResBlock_0/Conv_0/kernel`), and reads
-`pose_meta.json` and `error_thresholds.json`.  `write_artifacts` writes a
-new tree beside the one it was derived from.
+key paths such as `params/ResBlock_0/Conv_0/kernel`), and reads and writes
+`pose_meta.json` and reads `error_thresholds.json`.  `write_artifacts`
+writes a new tree beside the one it was derived from.
+
+The JAX package also keeps a model as an Orbax step folder
+(`params/<model>/step_*`), which it prefers to `<model>.npz`.  The port
+reads npz only, so every reader of a tree (`load_params`,
+`config_for_artifacts`) refuses a tree that holds such a folder for any
+model rather than run other weights than the JAX package would
+(`refuse_step_dirs`).
 """
 
 from __future__ import annotations
@@ -22,9 +29,52 @@ from golfaction_tpu_torch.graph import NUM_JOINTS
 from golfaction_tpu_torch.models.error import NUM_ANGLE_FEATURES
 
 
+#: The models an artifacts tree may hold, as `params/<name>.npz`.
+MODEL_NAMES = ("pose", "gcn", "align", "error", "refine")
+
+
 def _params_dir(root: str) -> str:
     p = os.path.join(root, "params")
     return p if os.path.isdir(p) else root
+
+
+def _npz_advice(where: str) -> str:
+    return ("convert it to the npz form first (golfaction_tpu.train.checkpoint."
+            f"save_params_npz of its restored params, as {where}), or remove it")
+
+
+def step_dirs(root: str) -> list:
+    """The Orbax step folders `<params>/<name>/step_*` of a tree, sorted; an
+    empty `<params>/<name>/` holds none (the JAX package's
+    `latest_step_dir` returns None for it)."""
+    base = _params_dir(root)
+    out = []
+    for name in MODEL_NAMES:
+        d = os.path.join(base, name)
+        if os.path.isdir(d):
+            out += [os.path.join(d, e) for e in sorted(os.listdir(d)) if e.startswith("step_")]
+    return out
+
+
+def refuse_step_dirs(root: str) -> None:
+    """ValueError naming every `params/<name>/step_*` of the tree at `root`:
+    the JAX package loads such a folder in preference to `<name>.npz`, and
+    the port cannot read it."""
+    found = step_dirs(root)
+    if found:
+        npz = sorted({os.path.dirname(d) + ".npz" for d in found})
+        raise ValueError(
+            f"{root} holds Orbax checkpoints {found}, which the JAX package loads in "
+            "preference to the npz form and the port does not read: for each model "
+            + _npz_advice(" / ".join(npz)))
+
+
+def refuse_step_dir(path: str) -> None:
+    """ValueError when `path`, given as a params checkpoint file, is a folder
+    (an Orbax checkpoint)."""
+    if os.path.isdir(path):
+        raise ValueError(f"{path} is a folder, an Orbax checkpoint, which the port does not "
+                         "read: " + _npz_advice("a .npz file"))
 
 
 def restore_params_npz(path: str, cast=np.float32) -> dict:
@@ -66,8 +116,10 @@ def save_params_npz(path: str, params: dict, dtype=np.float16) -> str:
     return path
 
 
-def load_params(root: str, names=("pose", "gcn", "align", "error", "refine")) -> dict:
-    """{name: nested numpy tree} for every `<name>.npz` present."""
+def load_params(root: str, names=MODEL_NAMES) -> dict:
+    """{name: nested numpy tree} for every `<name>.npz` present.  Raises
+    ValueError on a tree with an Orbax step folder (`refuse_step_dirs`)."""
+    refuse_step_dirs(root)
     base = _params_dir(root)
     out = {}
     for name in names:
@@ -121,6 +173,19 @@ POSE_META_KEYS = {
 }
 
 
+def save_pose_meta(root: str, **meta) -> str:
+    """Write `<root>/pose_meta.json`: the decode configuration of the tree's
+    pose checkpoint (POSE_META_KEYS), which array shapes cannot reveal;
+    `config_for_artifacts` reads it back.  Raises ValueError on another key."""
+    unknown = set(meta) - set(POSE_META_KEYS)
+    if unknown:
+        raise ValueError(f"unknown pose_meta keys: {sorted(unknown)}")
+    path = os.path.join(os.path.abspath(root), "pose_meta.json")
+    with open(path, "w") as f:
+        json.dump(meta, f, indent=2)
+    return path
+
+
 def load_pose_meta(root: str) -> dict:
     path = os.path.join(os.path.abspath(root), "pose_meta.json")
     if not os.path.exists(path):
@@ -133,8 +198,10 @@ def config_for_artifacts(cfg, root: str):
     """Adapt a PipelineConfig to an artifacts tree: pose_meta.json's decode
     settings, the pose stem's in_frames, the keypoint refiner when the tree
     carries `refine.npz` and the error head's aux variant.  No-op when they
-    agree.  Raises on a refiner kept as an Orbax step directory
-    (`params/refine/step_*`), which the port cannot read."""
+    agree.  Raises ValueError on a tree with an Orbax step folder for any
+    model (`refuse_step_dirs`): the JAX package would load that folder, and
+    the port cannot."""
+    refuse_step_dirs(root)
     overrides = []
     meta = load_pose_meta(root)
     for key, path in POSE_META_KEYS.items():
@@ -149,16 +216,6 @@ def config_for_artifacts(cfg, root: str):
     nf = detect_pose_in_frames(root)
     if nf != cfg.pose.in_frames:
         overrides.append(f"pose.in_frames={nf}")
-    # The JAX package enables a refiner kept as an Orbax step directory; the
-    # port reads the compact npz form only, so such a tree is refused rather
-    # than run without its refiner.
-    steps = os.path.join(_params_dir(root), "refine")
-    if os.path.isdir(steps) and any(d.startswith("step_") for d in os.listdir(steps)):
-        raise ValueError(
-            f"{steps} holds a trained keypoint refiner as an Orbax checkpoint, which the "
-            "port does not read: convert it to the npz form first "
-            "(golfaction_tpu.train.checkpoint.save_params_npz of its params, as "
-            f"{os.path.join(_params_dir(root), 'refine.npz')}), so that it is not dropped")
     has_refine = os.path.exists(os.path.join(_params_dir(root), "refine.npz"))
     if has_refine != cfg.refine.enabled:
         overrides.append(f"refine.enabled={has_refine}")
@@ -192,11 +249,11 @@ def _inside(path: str, root: str) -> bool:
     return path == root or path.startswith(root.rstrip(os.sep) + os.sep)
 
 
-def refuse_inside(out: str, src: str) -> None:
+def refuse_inside(out: str, src: Optional[str] = None) -> None:
     """ValueError when the output folder `out` is the tree `src`, lies
     inside it, or lies inside the repo's `artifacts/`."""
     for root, what in ((src, "the source tree"), (REPO_ARTIFACTS, "the repo's artifacts/")):
-        if _inside(out, root):
+        if root is not None and _inside(out, root):
             raise ValueError(f"out={out!r} lies inside {what} ({root}); write the new files "
                              "to a folder of their own")
 

@@ -77,13 +77,13 @@ def main(argv=None) -> dict:
                     help="config override, e.g. --set pose.dtype=float32 (repeatable)")
     args = ap.parse_args(argv)
     device = "cpu" if args.cpu else args.device
-    os.makedirs(args.out, exist_ok=True)
     T, hw = args.frames, tuple(args.hw)
     t_start = time.perf_counter()
 
     pipe = Pipeline.from_artifacts(
         args.artifacts, "full_pipeline", device=device,
         overrides=[f"video_hw={hw}", f"length_buckets=({T},)", *args.set])
+    os.makedirs(args.out, exist_ok=True)
     cfg = pipe.cfg
     _log(f"loaded trained params from {args.artifacts} on {pipe.device} "
          f"(pose {cfg.pose.dtype}, gcn {cfg.gcn.dtype}, align {cfg.align.dtype}, "

@@ -19,6 +19,7 @@ backward, the E-recursion as a reverse wavefront (kernel E).
   * `softdtw_cost_masked` / `dtw_path_masked` — cost and hard path of
     D[:la, :lb] read from the full padded table: the DP flows strictly
     forward, so R[0:la, 0:lb] equals the trimmed problem's table.
+    `dtw_path` is the hard path over the whole table.
   * `softdtw_reference` / `softdtw_grad_reference` / `dtw_path_reference` —
     O(Ta*Tb) numpy loop oracles.
 """
@@ -409,29 +410,31 @@ softdtw_backward.launches = 0
 
 class _SoftDTWCost(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, D, gamma):
+    def forward(ctx, D, gamma, plain):
         D = D.float().contiguous()       # autograd may hand over a strided view
-        R = wavefront(D, gamma)
+        R = (wavefront_plain if plain else wavefront)(D, gamma)
         ctx.save_for_backward(D, R)
-        ctx.gamma = gamma
+        ctx.gamma, ctx.plain = gamma, plain
         return R[:, -1, -1].clone()
 
     @staticmethod
     def backward(ctx, g):
         D, R = ctx.saved_tensors
-        return g[:, None, None] * softdtw_backward(D, R, ctx.gamma), None
+        bwd = softdtw_backward_plain if ctx.plain else softdtw_backward
+        return g[:, None, None] * bwd(D, R, ctx.gamma), None, None
 
 
-def softdtw_cost(D: torch.Tensor, gamma: float) -> torch.Tensor:
+def softdtw_cost(D: torch.Tensor, gamma: float, plain: bool = False) -> torch.Tensor:
     """Soft-DTW cost [B] of cost matrices D [B, Ta, Tb], differentiable in D:
     one wavefront forward (kernel C on the card), one E-recursion backward
-    (kernel E on the card)."""
+    (kernel E on the card).  `plain` runs both through their plain versions
+    on any device (the baseline that `softdtw_bwd_bench` times)."""
     if gamma <= 0:
         raise ValueError("softdtw_cost needs gamma > 0: the hard minimum has "
                          "no E-recursion; use dtw_path_masked for hard DTW")
     if D.dim() != 3:
         raise ValueError(f"softdtw_cost: expected D [B, Ta, Tb], got {tuple(D.shape)}")
-    return _SoftDTWCost.apply(D, gamma)
+    return _SoftDTWCost.apply(D, gamma, plain)
 
 
 def softdtw_with_alignment(D: torch.Tensor, gamma: float):
@@ -454,6 +457,20 @@ def dtw_path_masked(D: torch.Tensor, la: torch.Tensor, lb: torch.Tensor):
     """Hard DTW path of D[b, :la, :lb]; path [B, Ta+Tb-1, 2] int32 padded
     with -1, and lengths [B] int32."""
     return _backtrack(wavefront(D, 0.0), la, lb)
+
+
+def dtw_path(D: torch.Tensor):
+    """Hard DTW path over the whole of D [Ta, Tb] (or a batch [B, Ta, Tb]):
+    path [Ta+Tb-1, 2] int32 from (0, 0) to (Ta-1, Tb-1), padded with -1, and
+    its length; `dtw_path_masked` at full lengths (kernel C at gamma 0, then
+    the backtrack, on the card)."""
+    single = D.dim() == 2
+    Db = (D[None] if single else D).float().contiguous()
+    B, Ta, Tb = Db.shape
+    la = torch.full((B,), Ta, dtype=torch.int32, device=D.device)
+    lb = torch.full((B,), Tb, dtype=torch.int32, device=D.device)
+    path, length = dtw_path_masked(Db, la, lb)
+    return (path[0], length[0]) if single else (path, length)
 
 
 def _backtrack(R: torch.Tensor, la: torch.Tensor, lb: torch.Tensor):

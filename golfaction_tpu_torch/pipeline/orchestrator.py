@@ -174,6 +174,12 @@ class Pipeline:
         up to whole-frame crops, so it owes nothing to the host's box
         estimate and survives camera motion), takes tight boxes from its
         keypoints, interpolates them to every frame and smooths them."""
+        return self._pose_pass(frames, self._refined_boxes(frames, boxes))
+
+    def _refined_boxes(self, frames: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+        """boxes [N, T, 4] after the keypoint-seeded refinement of
+        frames [N, T, H, W, 3] (`_pose_fn`); as given when
+        `box_refine_stride` is 0 or the clips are no longer than it."""
         s = self.cfg.box_refine_stride
         N, T, H, W = frames.shape[:4]
         if s > 0 and T > s:
@@ -184,7 +190,45 @@ class Pipeline:
             rb = affine.boxes_from_keypoints(coarse, (H, W), min_size=0.1 * H)
             boxes = torch.stack([affine.smooth_boxes(affine.interp_boxes(rb[n], s, T), window=9)
                                  for n in range(N)])
-        return self._pose_pass(frames, boxes)
+        return boxes
+
+    def _pose_heatmaps(self, frames: torch.Tensor, boxes: torch.Tensor):
+        """The pose front of one clip up to the raw heatmaps, for the probes:
+        frames [T, H, W, 3] uint8 and boxes [T, 4] on the device -> (heatmaps
+        [T, V, Hh, Wh], the center-scale boxes [T, 4] the crops were taken
+        with).  With `box_refine_stride` > 0 the boxes come from the coarse
+        full-frame pass as in `_pose_fn`; then the crops (kernel A, once per
+        neighbour offset when pose.in_frames > 1) and the pose net, in
+        micro-batches of `frame_batch`."""
+        c = self.cfg
+        T = frames.shape[0]
+        boxes = affine.box_to_center_scale(
+            self._refined_boxes(frames[None], boxes[None])[0],
+            aspect_ratio=c.pose.input_hw[1] / c.pose.input_hw[0]).contiguous()
+        mb = max(1, min(c.frame_batch, T))
+        hms = [self.pose_model(self._context_crops(frames, boxes, i, mb, T))
+               for i in range(0, T, mb)]
+        return torch.cat(hms), boxes
+
+    def _context_crops(self, flat_f: torch.Tensor, flat_b: torch.Tensor, s: int, mb: int,
+                       T: int) -> torch.Tensor:
+        """The pose net's input for frames s..s+mb of flat_f [N*T, H, W, 3]
+        (clips of T frames) with the center-scale boxes flat_b [N*T, 4]:
+        crops through kernel A, [mb, h, w, 3 * pose.in_frames]."""
+        c = self.cfg
+        half = c.pose.in_frames // 2
+        if half == 0:
+            return preprocess.crop_resize_normalize(
+                flat_f[s:s + mb], flat_b[s:s + mb], c.pose.input_hw)
+        # Temporal context: each frame's neighbours t-k..t+k (clamped at its
+        # clip's edges), cropped with frame t's box and concatenated on the
+        # channel axis.
+        idx = torch.arange(s, min(s + mb, flat_f.shape[0]), device=flat_f.device)
+        start, t = idx - idx % T, idx % T
+        return torch.cat([
+            preprocess.crop_resize_normalize(
+                flat_f[start + (t + off).clamp(0, T - 1)], flat_b[s:s + mb], c.pose.input_hw)
+            for off in range(-half, half + 1)], dim=-1)
 
     def _pose_pass(self, frames: torch.Tensor, boxes: torch.Tensor, want_aux: bool = True):
         """frames [N, T, H, W, 3] uint8, boxes [N, T, 4] (device) ->
@@ -203,7 +247,6 @@ class Pipeline:
         if want_modes and track_k < 2:
             raise ValueError("error.mode_features requires pose.decode_tracking >= 2 "
                              "(the secondary mode comes from the tracked-decode NMS)")
-        half = c.pose.in_frames // 2
         boxes = affine.box_to_center_scale(
             boxes, aspect_ratio=c.pose.input_hw[1] / c.pose.input_hw[0])
         flat_f = frames.reshape(N * T, *frames.shape[2:])
@@ -211,21 +254,7 @@ class Pipeline:
         mb = max(1, min(c.frame_batch, N * T))
         decs, moms = [], []
         for s in range(0, N * T, mb):
-            if half == 0:
-                crops = preprocess.crop_resize_normalize(
-                    flat_f[s:s + mb], flat_b[s:s + mb], c.pose.input_hw)
-            else:
-                # Temporal context: each frame's neighbours t-k..t+k (clamped
-                # at its clip's edges), cropped with frame t's box and
-                # concatenated on the channel axis.
-                idx = torch.arange(s, min(s + mb, N * T), device=frames.device)
-                start, t = idx - idx % T, idx % T
-                crops = torch.cat([
-                    preprocess.crop_resize_normalize(
-                        flat_f[start + (t + off).clamp(0, T - 1)], flat_b[s:s + mb],
-                        c.pose.input_hw)
-                    for off in range(-half, half + 1)], dim=-1)
-            hm = self.pose_model(crops)                             # [mb, V, Hh, Wh]
+            hm = self.pose_model(self._context_crops(flat_f, flat_b, s, mb, T))  # [mb, V, Hh, Wh]
             if track_k:
                 decs.append(heatmap.topk_modes(
                     hm, k=track_k, suppress_radius=c.pose.track_suppress_radius))

@@ -232,23 +232,32 @@ def pose_eval_crops(frames_np, boxes: torch.Tensor, pose_cfg: cfg_mod.PoseConfig
     return _context_crops(frames_np, np.arange(len(frames_np)), boxes.contiguous(), pose_cfg)
 
 
+def heatmap_pck(hm: torch.Tensor, boxes: torch.Tensor, gt_kpts, pose_cfg: cfg_mod.PoseConfig,
+                alpha: float = 0.05) -> float:
+    """PCK@alpha of one clip's heatmaps [T, V, Hh, Wh], taken from crops with
+    the aspect-matched boxes [T, 4]: single-peak UDP decode (kernel D on
+    the card), mapped to image px, held to the ground truth [T, V, >=2] at
+    alpha * max(box w, box h)."""
+    kpts = heatmap.decode_heatmaps(hm, "udp")
+    kpts_img = heatmap.keypoints_to_image(kpts, boxes, pose_cfg.heatmap_hw, pose_cfg.input_hw)
+    bbox = torch.maximum(boxes[:, 2], boxes[:, 3])
+    gt = torch.as_tensor(np.asarray(gt_kpts), device=hm.device)
+    return float(metrics.pck(kpts_img, gt, bbox, alpha=alpha))
+
+
 @torch.no_grad()
 def evaluate_pose(model: PoseNet, pose_cfg: cfg_mod.PoseConfig, samples,
                   alpha: float = 0.05) -> float:
     """Stage-wise pose evaluation on rendered samples: PCK@alpha through the
-    full preprocess -> pose -> single-peak UDP decode -> image-space path,
-    mean over the clips.  Runs where the model's weights lie."""
+    full preprocess -> pose -> single-peak UDP decode -> image-space path
+    (`heatmap_pck`), mean over the clips.  Runs where the model's weights
+    lie."""
     device = next(model.parameters()).device
     pcks = []
     for s in samples:
         boxes = _pose_boxes(s.boxes, pose_cfg, device)
         hm = model(pose_eval_crops(s.frames, boxes, pose_cfg))
-        kpts = heatmap.decode_heatmaps(hm, "udp")
-        kpts_img = heatmap.keypoints_to_image(kpts, boxes, pose_cfg.heatmap_hw,
-                                              pose_cfg.input_hw)
-        bbox = torch.maximum(boxes[:, 2], boxes[:, 3])
-        gt = torch.from_numpy(s.keypoints).to(device)
-        pcks.append(float(metrics.pck(kpts_img, gt, bbox, alpha=alpha)))
+        pcks.append(heatmap_pck(hm, boxes, s.keypoints, pose_cfg, alpha))
     return float(np.mean(pcks))
 
 
@@ -366,7 +375,9 @@ def error_loss(model, batch, step: int = 0, mesh=None):
 
 def _load_pose_init(model: PoseNet, init_from: str) -> None:
     """Params-only warm start: a compact .npz in the JAX package's layout, or
-    a training checkpoint of these trainers (its model weights only)."""
+    a training checkpoint of these trainers (its model weights only).  An
+    Orbax checkpoint (a folder) is refused."""
+    ckpt_mod.refuse_step_dir(init_from)
     if init_from.endswith(".npz"):
         sd = weights.pose_state_dict(ckpt_mod.restore_params_npz(init_from))
     else:

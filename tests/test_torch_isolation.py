@@ -1,5 +1,6 @@
 """The port stands alone: no module of golfaction_tpu_torch, and not
-chip_smoke.py, imports JAX, flax, optax, orbax or the JAX package."""
+chip_smoke.py, imports JAX, flax, optax, orbax, the JAX package or the JAX
+package's scripts (as `scripts.<name>` or by a script's bare name)."""
 
 import ast
 from pathlib import Path
@@ -7,7 +8,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "golfaction_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "golfaction_tpu", "scripts")
+SCRIPT_MODULES = {p.stem for p in (ROOT / "scripts").glob("*.py")}
 PKG = ROOT / "golfaction_tpu_torch"
 SOURCES = sorted(p for p in PKG.rglob("*.py")
                  if "build" not in p.relative_to(PKG).parts) + [ROOT / "chip_smoke.py"]
@@ -24,7 +26,8 @@ def _imports(path: Path) -> list[str]:
 
 
 def _forbidden(name: str) -> bool:
-    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+    return (any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+            or name.split(".")[0] in SCRIPT_MODULES)
 
 
 def test_sources_found():
@@ -36,7 +39,9 @@ def test_sources_found():
             "utils/profiling.py", "utils/logging.py", "train/import_weights.py",
             "bench.py", "parallel/__init__.py", "parallel/mesh.py", "parallel/comm.py",
             "parallel/train_step.py", "ops/softdtw_sharded.py", "cascade_finetune.py",
-            "calibrate_thresholds.py"} <= found
+            "calibrate_thresholds.py", "train_eval.py", "_probe_common.py", "probe_arm_gain.py",
+            "probe_heatmap_modes.py", "probe_heatmap_spread.py", "promote_artifacts.py",
+            "import_pose.py", "softdtw_bwd_bench.py"} <= found
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -48,3 +53,5 @@ def test_no_jax_imports(path):
 def test_guard_catches_the_jax_package():
     assert _forbidden("golfaction_tpu") and _forbidden("golfaction_tpu.ops.softdtw")
     assert _forbidden("jax.numpy") and not _forbidden("golfaction_tpu_torch.ops")
+    assert _forbidden("scripts.probe_arm_gain") and _forbidden("_probe_common")
+    assert _forbidden("probe_heatmap_modes") and not _forbidden("golfaction_tpu_torch._probe_common")
