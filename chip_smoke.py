@@ -8,8 +8,9 @@ Phases (each prints one line; any failure exits non-zero):
   1. device    the card's name and power limit (nvidia-smi)
   2. build     nvcc of every kernel source and g++ of the motion-box
                library (native/golfer_host.cpp), all started together; what
-               ptxas reported for the kernels of A, B, C, E and F (registers,
-               spills) and how many of their blocks one SM holds at the main
+               ptxas reported for the kernels of A (both variants), B, C, E
+               and F (registers, spills) and how many of their blocks one
+               SM holds at the main
                path's and the trainer's shapes; F's cluster size at each
                distinct site shape and how many such clusters the card holds
                at once
@@ -126,6 +127,15 @@ Phases (each prints one line; any failure exits non-zero):
                dict at full width (coverage 1, the imported tree runs), and
                `softdtw_bwd_bench` at B 64 and 192, T 128, with kernel E's
                two-launch layout timed alone beside its bound
+ 18. preprocess_bf16  kernel A's bfloat16 variant against its plain version
+               at [64, 1080, 1920, 3] -> [64, 256, 192, 3] with the smoke's
+               boxes and 20 odd ones (equal to the bit), its times, bound
+               and library call (`F.grid_sample`, then `.bfloat16()`);
+               `_core_fn` of the shipped model on 2 clips at
+               preprocess_dtype float32 and bfloat16 (each call a driven path:
+               A's variant launched only at bfloat16, kernel A only at
+               float32), the keypoint gap and the phase labels' agreement
+               between them; `bench_preprocess_dtype` at its defaults
 Phases 4 (main), 5 (e2e, breakdown), 10-13 and the trainers' timed steps run
 at the configs' default dtype (bfloat16); the comparisons with the CPU
 (reference_cpu, single_peak_cpu, options_cpu, train_step_*_vs_cpu),
@@ -139,7 +149,7 @@ runs only the options phase, N times on the same clips (a record of whether
 `options_cpu` ever fails).
 
 A kernel's `launches` counts calls of its wrapper, summed over the driven
-paths (4, 6-9, 11-17; the bench counts its own, in its process, from its
+paths (4, 6-9, 11-18; the bench counts its own, in its process, from its
 headline to config 1; the parallel phase adds what its ranks counted); each path zeroes the counts just before it runs and
 reads them just after.  The GCN tail's call is four __global__ launches
 (rows, taps, gates, apply); the others' is one.  The `launches` line also
@@ -286,9 +296,13 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def preprocess_bytes_ops(boxes: torch.Tensor, H: int, W: int, oh: int, ow: int):
+def preprocess_bytes_ops(boxes: torch.Tensor, H: int, W: int, oh: int, ow: int,
+                         out_bytes: int = 4, ops_per_px: int = 47):
     """Bytes the warp must move: the source pixels its taps touch (3 B each)
-    plus the float32 output; ops: 47 float operations per output pixel."""
+    plus the output (`out_bytes` a value: 4 float32, 2 bfloat16); ops:
+    `ops_per_px` float operations per output pixel (47 for the float32
+    kernel; about 60 for the bfloat16 variant, which rounds three times and
+    divides twice a value)."""
     from golfaction_tpu_torch.ops.preprocess import _sample_coords
 
     b = boxes.detach().cpu().float()
@@ -304,8 +318,8 @@ def preprocess_bytes_ops(boxes: torch.Tensor, H: int, W: int, oh: int, ow: int):
         else:
             ny = np.asarray(counts)
     touched = int((nx * ny).sum()) * 3
-    out = b.shape[0] * oh * ow * 3 * 4
-    return touched + out + b.numel() * 4, 47.0 * b.shape[0] * oh * ow
+    out = b.shape[0] * oh * ow * 3 * out_bytes
+    return touched + out + b.numel() * 4, float(ops_per_px) * b.shape[0] * oh * ow
 
 
 def gcn_tail_bytes_ops(B: int, T: int, V: int, w) -> tuple[float, float]:
@@ -715,7 +729,8 @@ def int8_phase(counters, err: dict) -> tuple[dict, dict]:
     # of a forward have it; beside each, the kernel alone under the other
     # layouts the launch policy weighs (one wave of blocks; the smallest
     # cluster that stages), so that the choice is measured in every run.
-    tot = {"ms": 0.0, "graph_ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "ops": 0.0}
+    tot = {"ms": 0.0, "graph_ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "ops": 0.0,
+           "library_ms": 0.0}
     per_shape = []
     max_cluster, sms, l2 = requant.card_limits(dev)
     with torch.inference_mode():
@@ -738,18 +753,19 @@ def int8_phase(counters, err: dict) -> tuple[dict, dict]:
                 geo = requant.launch_geometry(**shape, cluster=c)
                 layouts[f"cluster {c}, {'staged' if geo.staged else 're-read'}"] = graph_ms(
                     lambda: requant.launch(out, geo, *a, **kw), calls=10, reps=5)
+            # The library's GroupNorm alone on the site's dequantized values.
+            y, sy, gamma, beta, groups = a
+            deq = (y.float() * sy).permute(0, 3, 1, 2).contiguous()
+            lib = cuda_ms(lambda: F.group_norm(deq, groups, gamma, beta, eps=1e-6), reps=10)
+            del deq
             per_shape.append({"R": R, "C": C, "residual": res, "out": out_t, "sites": k["count"],
                               "cluster": chosen.cluster, "staged": chosen.staged,
                               "ms": ms, "graph_ms": gms, "plain_ms": plain, "bound_ms": bms,
-                              "bound_by": by, "other_layouts_graph_ms": layouts})
+                              "bound_by": by, "library_ms": lib,
+                              "other_layouts_graph_ms": layouts})
             for key, v in (("ms", ms), ("graph_ms", gms), ("plain_ms", plain), ("bytes", nb),
-                           ("ops", ops)):
+                           ("ops", ops), ("library_ms", lib)):
                 tot[key] += v * k["count"]
-        stem = next(k for (R, C, _, _), k in kept.items() if R == 12288)
-        y, sy, gamma, beta, groups = stem["args"]
-        deq = (y.float() * sy).permute(0, 3, 1, 2).contiguous()
-        lib = cuda_ms(lambda: F.group_norm(deq, groups, gamma, beta, eps=1e-6), reps=10)
-        del deq
     kept.clear()
     torch.cuda.empty_cache()
     bms, by = bound(tot["bytes"], tot["ops"])
@@ -757,10 +773,11 @@ def int8_phase(counters, err: dict) -> tuple[dict, dict]:
                  source="golfaction_tpu_torch/csrc/requant.cu",
                  replaces="golfaction_tpu/ops/pallas/requant_kernel.py:168",
                  launches=0, max_abs_err=err["requant"], ms=tot["ms"], plain_ms=tot["plain_ms"],
-                 bound_ms=bms, bound_by=by, library_ms=lib, graph_ms=tot["graph_ms"],
+                 bound_ms=bms, bound_by=by, library_ms=tot["library_ms"],
+                 graph_ms=tot["graph_ms"],
                  shape="the 20 sites of one fused forward at batch 64 (max_abs_err in int8 "
-                       "LSB; library_ms is F.group_norm alone on the dequantized float32 "
-                       "stem tensor [64, 64, 128, 96], the middle of one site)",
+                       "LSB; library_ms is F.group_norm alone on each site's dequantized "
+                       "float32 values, summed over the 20 sites as ms is)",
                  bytes=tot["bytes"], ops=tot["ops"], **EARLIER["requant_epilogue"],
                  earlier_from=EARLIER_FROM)
     say("time_requant_sites", per_shape=per_shape)
@@ -1978,6 +1995,142 @@ def retrain_chain_phase(counters, e2e: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 18. preprocess_bf16: preprocess_dtype="bfloat16" and kernel A's bfloat16 variant
+# ---------------------------------------------------------------------------
+
+# Odd boxes (tests/test_torch_kernels_cuda.py's, then boxes whose sample
+# coordinates all lie in [-1, 1)); they take the first rows of a micro-batch.
+ODD_BOXES = ([80.3, 60.7, 9.0, 12.0], [10.0, 10.0, 4.0, 4.0], [150.0, 110.0, 6.5, 3.2],
+             [80.0, 60.0, 2.0, 2.0], [-300.0, 60.0, 50.0, 50.0], [500.0, 500.0, 30.0, 40.0],
+             [80.0, -200.0, 60.0, 90.0], [80.0, 400.0, 10.0, 10.0], [5e6, -3e7, 20.0, 30.0],
+             [-1e9, 1e9, 1e3, 1e3], [3e9, 3e9, 1.0, 1.0], [1e12, 0.0, 5.0, 5.0],
+             [80.0, 60.0, 1.0, 1.0], [0.0, 0.0, 1.0, 1.0], [159.0, 119.0, 1.0, 1.0],
+             [80.5, 60.5, 1.0, 0.5], [0.0, 0.0, 1.0, 1.0], [0.05, -0.1, 0.7, 0.9],
+             [-0.3, 0.2, 0.5, 0.4], [1e-8, 1e-8, 1e-8, 1e-8])
+PREPROCESS_DTYPE_CLIPS = 2      # the bench's clips of 64 frames
+
+
+def bf16_gap(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """How two bfloat16 tensors differ: values off, the share off, the
+    largest distance in bfloat16 ulps (steps of the 16-bit pattern) and in
+    value."""
+    d = (got.view(torch.int16).int() - want.view(torch.int16).int()).abs()
+    off = got != want
+    return {"values_off": int(off.sum()), "share_off": float(off.float().mean()),
+            "max_ulps": int(d.max()), "max_abs_err": float((got.float() - want.float()).abs().max())}
+
+
+def preprocess_bf16_phase(clips, boxes, counters) -> tuple[dict, dict]:
+    """The bfloat16 crops (phase 18): kernel A's bfloat16 variant against its
+    plain version at the main path's shape with the smoke's and odd boxes,
+    its times and bound; `_core_fn` of the shipped model at both
+    preprocess_dtype values (the launches of each, the keypoint gap, the
+    labels' agreement); `bench_preprocess_dtype` at its defaults.  Returns
+    (the launches of the two driven calls, the kernels-line entry)."""
+    from golfaction_tpu_torch import bench_preprocess_dtype
+    from golfaction_tpu_torch.ops import affine, preprocess
+    from golfaction_tpu_torch.pipeline.orchestrator import Pipeline
+
+    dev = torch.device("cuda")
+    H, W = VIDEO_HW
+    pipes = {dt: Pipeline.from_artifacts("artifacts", device="cuda",
+                                         overrides=[f"preprocess_dtype={dt}"])
+             for dt in ("float32", "bfloat16")}
+    cfg = pipes["bfloat16"].cfg
+    oh, ow = cfg.pose.input_hw
+    fb = cfg.frame_batch
+    frames_a = torch.from_numpy(clips[0][:fb]).to(dev)
+    boxes_a = affine.box_to_center_scale(torch.from_numpy(boxes[0][:fb]).to(dev),
+                                         ow / oh).contiguous()
+    odd = boxes_a.clone()
+    odd[:len(ODD_BOXES)] = torch.tensor(ODD_BOXES, dtype=torch.float32, device=dev)
+    gaps = {}
+    for name, bx in (("smoke_boxes", boxes_a), ("odd_boxes", odd)):
+        got = preprocess.crop_resize_normalize(frames_a, bx, (oh, ow), dtype=torch.bfloat16)
+        want = preprocess.crop_resize_normalize_bf16_reference(frames_a, bx, (oh, ow))
+        check(got.dtype == torch.bfloat16 and tuple(got.shape) == (fb, oh, ow, 3),
+              f"bfloat16 crops {got.dtype} {tuple(got.shape)}")
+        gaps[name] = bf16_gap(got, want)
+    say("parity_preprocess_bf16", shape=[fb, H, W, 3], out=[fb, oh, ow, 3],
+        odd_boxes=len(ODD_BOXES), gaps=gaps, limit="equal to the bit")
+    check(all(g["values_off"] == 0 for g in gaps.values()),
+          "bfloat16 preprocess kernel differs from its plain version")
+
+    def kernel():
+        return preprocess.crop_resize_normalize(frames_a, boxes_a, (oh, ow), dtype=torch.bfloat16)
+
+    ms, gms = cuda_ms(kernel), graph_ms(kernel)
+    plain = cuda_ms(lambda: preprocess.crop_resize_normalize_bf16_reference(frames_a, boxes_a,
+                                                                             (oh, ow)), reps=5)
+    src = frames_a.permute(0, 3, 1, 2).float().contiguous()
+    gx = preprocess._sample_coords(boxes_a, ow, axis=0) / (W - 1) * 2 - 1
+    gy = preprocess._sample_coords(boxes_a, oh, axis=1) / (H - 1) * 2 - 1
+    grid = torch.stack([gx[:, None, :].expand(-1, oh, -1),
+                        gy[:, :, None].expand(-1, -1, ow)], dim=-1).contiguous()
+
+    def library():
+        return F.grid_sample(src, grid, mode="bilinear", padding_mode="zeros",
+                             align_corners=True).bfloat16()
+
+    lib, lib_graph = cuda_ms(library), graph_ms(library)
+    del src, grid
+    nb, ops = preprocess_bytes_ops(boxes_a, H, W, oh, ow, out_bytes=2, ops_per_px=60)
+    bms, by = bound(nb, ops)
+
+    # The shipped model's device program at both crop dtypes, each call a
+    # driven path of its own.
+    T = CLIP_T
+    fr = torch.from_numpy(np.stack(clips[2:2 + PREPROCESS_DTYPE_CLIPS])).to(dev)
+    bxs = torch.from_numpy(np.stack(boxes[2:2 + PREPROCESS_DTYPE_CLIPS])).to(dev)
+    valid = torch.ones((PREPROCESS_DTYPE_CLIPS, T), dtype=torch.bool, device=dev)
+    launches, outs = {}, {}
+    with torch.inference_mode():
+        for dt, pipe in pipes.items():
+            pipe._core_fn(fr, bxs, valid)                     # warm
+            _zero(counters)
+            outs[dt] = pipe._core_fn(fr, bxs, valid)
+            launches[dt] = _counted(counters)
+    per_call = -(-PREPROCESS_DTYPE_CLIPS * T // fb) * cfg.pose.in_frames
+    kb, kf = outs["bfloat16"]["keypoints"], outs["float32"]["keypoints"]
+    d = (kb[..., :2] - kf[..., :2]).abs().flatten().float().cpu().numpy()
+    labels_equal = float((outs["bfloat16"]["phase_labels"]
+                          == outs["float32"]["phase_labels"]).float().mean())
+    say("preprocess_dtype_core", clips=PREPROCESS_DTYPE_CLIPS, frames=T,
+        launches=launches, kernel_a_calls_per_core_call=per_call,
+        kpt_gap_px={"median": float(np.median(d)), "p99": float(np.percentile(d, 99)),
+                    "max": float(d.max())},
+        phase_labels_equal=labels_equal)
+    check(bool(torch.isfinite(kb).all()), "preprocess_dtype_core: non-finite keypoints")
+    check(launches["bfloat16"]["preprocess_bf16"] == per_call
+          and launches["bfloat16"]["preprocess"] == 0,
+          f"bfloat16 crops: kernel A launches {launches['bfloat16']}, expected {per_call} "
+          "of the bfloat16 variant and none of the float32 kernel")
+    check(launches["float32"]["preprocess"] == per_call
+          and launches["float32"]["preprocess_bf16"] == 0,
+          f"float32 crops: kernel A launches {launches['float32']}")
+    del pipes, fr, outs
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    line = _quiet(bench_preprocess_dtype.main, [])
+    say("bench_preprocess_dtype", call="python -m golfaction_tpu_torch.bench_preprocess_dtype",
+        seconds=round(time.perf_counter() - t0, 3), **line)
+    check(all(np.isfinite(line[k]) and line[k] > 0 for k in ("fps_f32", "fps_bf16", "speedup")),
+          f"bench_preprocess_dtype: {line}")
+    entry = dict(name="crop_resize_normalize_bf16", route="cuda",
+                 source="golfaction_tpu_torch/csrc/preprocess.cu",
+                 replaces="golfaction_tpu/ops/preprocess.py:106 at dtype=bfloat16 (the "
+                          "bfloat16 inner arithmetic of "
+                          "golfaction_tpu/ops/pallas/preprocess_kernel.py:49-63)",
+                 launches=0, max_abs_err=max(g["max_abs_err"] for g in gaps.values()),
+                 ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
+                 graph_ms=gms, library_graph_ms=lib_graph, shape=[fb, H, W, 3], bytes=nb,
+                 ops=ops)
+    say("time", **{k: entry[k] for k in TIME_KEYS if k in entry})
+    return {f"preprocess_dtype_{k}": v for k, v in launches.items()}, entry
+
+
+# ---------------------------------------------------------------------------
 # 15. parallel: data parallelism on torch.distributed
 # ---------------------------------------------------------------------------
 
@@ -2320,11 +2473,12 @@ def main() -> int:
     say("build", seconds=round(time.perf_counter() - t0, 3),
         sources=list(_kernels.SOURCES + _kernels.HOST_SOURCES))
     occ = _kernels.bind("gcn_tail", "gcn_tail_blocks_per_sm", "iiii")
+    crop_occ = _kernels.bind("preprocess", "crop_resize_normalize_blocks_per_sm", "i")
     say("resources", ptxas={n: _kernels.resource_usage(n)
                             for n in ("preprocess", "gcn_tail", "softdtw", "softdtw_bwd",
                                       "requant")},
-        blocks_per_sm={"crop_resize_normalize": _kernels.bind(
-            "preprocess", "crop_resize_normalize_blocks_per_sm", "")(),
+        blocks_per_sm={"crop_resize_normalize": crop_occ(0),
+            "crop_resize_normalize_bf16": crop_occ(1),
             "gcn_tail [rows, taps, gates, apply]": {
                 C: [occ(i, C, 17, max(C // 4, 8)) for i in range(4)]
                 for C in (64, 128, 256)},
@@ -2682,9 +2836,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths.update(retrain_chain_phase(counters, e2e_metrics))
     lap("retrain_chain")
-    names = ("preprocess", "gcn_tail", "softdtw", "decode", "softdtw_bwd", "requant")
+    torch.cuda.empty_cache()
+    bf16_paths, bf16_entry = preprocess_bf16_phase(clips, boxes, counters)
+    paths.update(bf16_paths)
+    entries.append(bf16_entry)
+    lap("preprocess_bf16")
+    names = ("preprocess", "gcn_tail", "softdtw", "decode", "softdtw_bwd", "requant",
+             "preprocess_bf16")
     for en, k in zip(entries, names):
-        en["launches"] = sum(p[k] for p in paths.values())
+        en["launches"] = sum(p.get(k, 0) for p in paths.values())
         check(en["launches"] > 0, f"kernel {k} was launched on no driven path")
     say("launches", by_path=paths, phase_seconds=phase_seconds,
         smoke_seconds=round(time.perf_counter() - wall0, 3))

@@ -177,7 +177,8 @@ def kernel_counters() -> dict:
 
     return {"preprocess": preprocess.crop_resize_normalize, "gcn_tail": gcn_tail.gcn_block_tail,
             "softdtw": softdtw.wavefront, "decode": heatmap.decode_heatmaps,
-            "softdtw_bwd": softdtw.softdtw_backward, "requant": requant.requant_epilogue}
+            "softdtw_bwd": softdtw.softdtw_backward, "requant": requant.requant_epilogue,
+            "preprocess_bf16": preprocess.crop_resize_normalize_bf16}
 
 
 def e2e_lengths(n: int) -> list:

@@ -9,10 +9,10 @@ exception the JAX package makes too: on the TPU it is float32 whatever
 `GCNConfig.dtype` says (models/gcn.py).  The JAX package's `*_impl`
 fields, which choose between two implementations of one function, are not
 carried: each stage here has one, its kernel on the card, and an override
-naming such a field is refused.  `preprocess_dtype` and `mesh` are carried
-but honoured only at their defaults (float32 crops, one device): a
-PipelineConfig with another value is refused when it is built, so also by
-`apply_overrides`.
+naming such a field is refused.  `mesh` is read by `parallel.mesh.make_mesh`.
+`preprocess_dtype` is "float32" or "bfloat16", the dtype of the pose pass's
+crops (kernel A or its bfloat16 variant); any other value is refused when
+the PipelineConfig is built, so also by `apply_overrides`.
 """
 
 from __future__ import annotations
@@ -142,6 +142,11 @@ class MeshConfig:
     model_parallel: int = 1
 
 
+# The dtypes of the pose pass's crops: kernel A writes float32, its variant
+# bfloat16.
+PREPROCESS_DTYPES = ("float32", "bfloat16")
+
+
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
     """End-to-end orchestrator."""
@@ -164,10 +169,10 @@ class PipelineConfig:
     box_refine_stride: int = 0
 
     def __post_init__(self):
-        if self.preprocess_dtype != "float32":
+        if self.preprocess_dtype not in PREPROCESS_DTYPES:
             raise ValueError(
-                f"preprocess_dtype={self.preprocess_dtype!r} is not honoured by the port: "
-                "its crops are float32 (kernel A writes float32); only 'float32' is accepted")
+                f"preprocess_dtype={self.preprocess_dtype!r}: the crops are one of "
+                f"{', '.join(map(repr, PREPROCESS_DTYPES))} (the dtypes the models compute in)")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -105,6 +105,22 @@ def build_all(names=SOURCES) -> None:
         _finish_build(job)
 
 
+def _demangled_kernel(entry: str) -> str:
+    """A mangled `__global__` name -> `name<int and bool template args>`:
+    the identifier ending in `_kernel` whose length prefix (the digits just
+    before it) matches it."""
+    for m in re.finditer(r"\d+(?=[A-Za-z_])", entry):
+        for k in range(len(m.group(0))):
+            end = m.end() + int(m.group(0)[k:])
+            name = entry[m.end():end]
+            if end <= len(entry) and name.endswith("_kernel"):
+                targs = re.match(r"(?:I|L[ib]\d+E)*", entry[end:]).group(0)
+                args = [v if t == "i" else ("false", "true")[int(v)]
+                        for t, v in re.findall(r"L([ib])(\d+)E", targs)]
+                return name + (f"<{', '.join(args)}>" if args else "")
+    return entry
+
+
 def resource_usage(name: str) -> list[dict]:
     """What ptxas reported for each kernel of csrc/<name>.cu when it was
     built: name (with its template arguments), registers, static
@@ -117,11 +133,7 @@ def resource_usage(name: str) -> list[dict]:
         regs = re.search(r"Used (\d+) registers", body)
         smem = re.search(r"(\d+) bytes smem", body)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", body)
-        short = re.search(r"\d+([a-z_]+_kernel)((?:I|L[ib]\d+E)*)", entry)
-        if short:
-            args = [v if t == "i" else ("false", "true")[int(v)]
-                    for t, v in re.findall(r"L([ib])(\d+)E", short.group(2))]
-            entry = short.group(1) + (f"<{', '.join(args)}>" if args else "")
+        entry = _demangled_kernel(entry)
         rows.append({"kernel": entry, "registers": int(regs.group(1)) if regs else None,
                      "static_smem": int(smem.group(1)) if smem else 0,
                      "spill_bytes": int(spill.group(1)) + int(spill.group(2)) if spill else None})

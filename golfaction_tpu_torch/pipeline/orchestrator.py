@@ -206,20 +206,23 @@ class Pipeline:
             self._refined_boxes(frames[None], boxes[None])[0],
             aspect_ratio=c.pose.input_hw[1] / c.pose.input_hw[0]).contiguous()
         mb = max(1, min(c.frame_batch, T))
-        hms = [self.pose_model(self._context_crops(frames, boxes, i, mb, T))
+        # The final crops are float32 whatever preprocess_dtype says, as the
+        # JAX probe front's are; the coarse pass above honours it.
+        hms = [self.pose_model(self._context_crops(frames, boxes, i, mb, T, torch.float32))
                for i in range(0, T, mb)]
         return torch.cat(hms), boxes
 
     def _context_crops(self, flat_f: torch.Tensor, flat_b: torch.Tensor, s: int, mb: int,
-                       T: int) -> torch.Tensor:
+                       T: int, dtype: torch.dtype) -> torch.Tensor:
         """The pose net's input for frames s..s+mb of flat_f [N*T, H, W, 3]
         (clips of T frames) with the center-scale boxes flat_b [N*T, 4]:
-        crops through kernel A, [mb, h, w, 3 * pose.in_frames]."""
+        crops of `dtype` through kernel A (its bfloat16 variant for
+        bfloat16), [mb, h, w, 3 * pose.in_frames]."""
         c = self.cfg
         half = c.pose.in_frames // 2
         if half == 0:
             return preprocess.crop_resize_normalize(
-                flat_f[s:s + mb], flat_b[s:s + mb], c.pose.input_hw)
+                flat_f[s:s + mb], flat_b[s:s + mb], c.pose.input_hw, dtype=dtype)
         # Temporal context: each frame's neighbours t-k..t+k (clamped at its
         # clip's edges), cropped with frame t's box and concatenated on the
         # channel axis.
@@ -227,7 +230,8 @@ class Pipeline:
         start, t = idx - idx % T, idx % T
         return torch.cat([
             preprocess.crop_resize_normalize(
-                flat_f[start + (t + off).clamp(0, T - 1)], flat_b[s:s + mb], c.pose.input_hw)
+                flat_f[start + (t + off).clamp(0, T - 1)], flat_b[s:s + mb], c.pose.input_hw,
+                dtype=dtype)
             for off in range(-half, half + 1)], dim=-1)
 
     def _pose_pass(self, frames: torch.Tensor, boxes: torch.Tensor, want_aux: bool = True):
@@ -252,9 +256,13 @@ class Pipeline:
         flat_f = frames.reshape(N * T, *frames.shape[2:])
         flat_b = boxes.reshape(N * T, 4).contiguous()
         mb = max(1, min(c.frame_batch, N * T))
+        # The pose net casts its input to its own dtype: a float32 net takes
+        # bfloat16 crops at their exact values, as JAX's type promotion does.
+        crop_dtype = getattr(torch, c.preprocess_dtype)
         decs, moms = [], []
         for s in range(0, N * T, mb):
-            hm = self.pose_model(self._context_crops(flat_f, flat_b, s, mb, T))  # [mb, V, Hh, Wh]
+            hm = self.pose_model(self._context_crops(flat_f, flat_b, s, mb, T,
+                                                     crop_dtype))  # [mb, V, Hh, Wh]
             if track_k:
                 decs.append(heatmap.topk_modes(
                     hm, k=track_k, suppress_radius=c.pose.track_suppress_radius))

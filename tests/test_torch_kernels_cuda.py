@@ -92,6 +92,59 @@ def test_preprocess_kernel_takes_odd_boxes(dev, kind, oh, ow):
         np.testing.assert_allclose(got.cpu().numpy(), np.broadcast_to(zero, got.shape), atol=1e-6)
 
 
+# The bfloat16 variant: its plain version on the same card computes the same
+# operations one by one (divisions by tensors, each rounding where JAX's
+# bfloat16 warp rounds), so the two are held equal to the bit.
+@pytest.mark.parametrize("b,h,w,oh,ow", [(3, 120, 160, 64, 48), (8, 1080, 1920, 256, 192),
+                                         (2, 90, 130, 33, 31), (1, 64, 64, 17, 5),
+                                         (5, 200, 300, 40, 36)])
+def test_preprocess_bf16_kernel_matches_plain(dev, b, h, w, oh, ow):
+    frames, boxes = _frames_boxes(np.random.default_rng(b), b, h, w)
+    f = torch.from_numpy(frames).to(dev)
+    bx = torch.from_numpy(boxes).to(dev)
+    n0 = preprocess.crop_resize_normalize_bf16.launches
+    n32 = preprocess.crop_resize_normalize.launches
+    got = preprocess.crop_resize_normalize(f, bx, (oh, ow), dtype=torch.bfloat16)
+    want = preprocess.crop_resize_normalize_bf16_reference(f, bx, (oh, ow))
+    torch.cuda.synchronize()
+    assert preprocess.crop_resize_normalize_bf16.launches == n0 + 1
+    assert preprocess.crop_resize_normalize.launches == n32
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (b, oh, ow, 3)
+    assert torch.equal(got, want)
+    # The CPU's plain version gives the same bits.
+    cpu = preprocess.crop_resize_normalize_bf16_reference(f.cpu(), bx.cpu(), (oh, ow))
+    assert torch.equal(got.cpu(), cpu)
+
+
+@pytest.mark.parametrize("kind", ["upscaled", "outside", "far", "one_px", "unit_corner"])
+@pytest.mark.parametrize("oh,ow", [(64, 48), (33, 31)])
+def test_preprocess_bf16_kernel_takes_odd_boxes(dev, kind, oh, ow):
+    """The float32 kernel's odd boxes, and boxes whose sample coordinates all
+    lie in [-1, 1), around the frame's first pixel."""
+    rng = np.random.default_rng(7)
+    h, w, b = 120, 160, 4
+    frames = torch.from_numpy(rng.integers(0, 256, (b, h, w, 3), dtype=np.uint8)).to(dev)
+    boxes = {"upscaled": [[80.3, 60.7, 9.0, 12.0], [10.0, 10.0, 4.0, 4.0], [150.0, 110.0, 6.5, 3.2],
+                          [80.0, 60.0, 2.0, 2.0]],
+             "outside": [[-300.0, 60.0, 50.0, 50.0], [500.0, 500.0, 30.0, 40.0],
+                         [80.0, -200.0, 60.0, 90.0], [80.0, 400.0, 10.0, 10.0]],
+             "far": [[5e6, -3e7, 20.0, 30.0], [-1e9, 1e9, 1e3, 1e3], [3e9, 3e9, 1.0, 1.0],
+                     [1e12, 0.0, 5.0, 5.0]],
+             "one_px": [[80.0, 60.0, 1.0, 1.0], [0.0, 0.0, 1.0, 1.0], [159.0, 119.0, 1.0, 1.0],
+                        [80.5, 60.5, 1.0, 0.5]],
+             "unit_corner": [[0.0, 0.0, 1.0, 1.0], [0.05, -0.1, 0.7, 0.9], [-0.3, 0.2, 0.5, 0.4],
+                             [1e-8, 1e-8, 1e-8, 1e-8]]}[kind]
+    bx = torch.tensor(boxes, dtype=torch.float32, device=dev)
+    got = preprocess.crop_resize_normalize(frames, bx, (oh, ow), dtype=torch.bfloat16)
+    want = preprocess.crop_resize_normalize_bf16_reference(frames, bx, (oh, ow))
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got.float()).all())
+    assert torch.equal(got, want)
+    if kind in ("outside", "far"):
+        zero = -torch.tensor(preprocess.IMAGENET_MEAN) / torch.tensor(preprocess.IMAGENET_STD)
+        assert torch.equal(got.cpu(), zero.to(torch.bfloat16).expand_as(got.cpu()))
+
+
 def _random_block(C, cin, seed):
     blk = GCNBlock(cin, C, tcfg.GCNConfig(), np.ones((3, 17, 17), np.float32))
     gen = torch.Generator().manual_seed(seed)

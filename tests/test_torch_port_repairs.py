@@ -83,13 +83,15 @@ def test_warp_averages_a_revisited_frame():
 
 
 @pytest.mark.parametrize("build", [
-    lambda: tcfg.PipelineConfig(preprocess_dtype="bfloat16"),
-    lambda: tcfg.get_config("full_pipeline", preprocess_dtype="bfloat16"),
-    lambda: tcfg.apply_overrides(tcfg.get_config(), ["preprocess_dtype=bfloat16"]),
+    lambda: tcfg.PipelineConfig(preprocess_dtype="float16"),
+    lambda: tcfg.get_config("full_pipeline", preprocess_dtype="float64"),
+    lambda: tcfg.apply_overrides(tcfg.get_config(), ["preprocess_dtype=int8"]),
     lambda: dataclasses.replace(tcfg.get_config(), preprocess_dtype="float16"),
 ])
 def test_a_preprocess_dtype_other_than_float32_is_refused(build):
-    with pytest.raises(ValueError, match="preprocess_dtype"):
+    """Every dtype but the two the crops come in (bfloat16 is accepted since
+    kernel A has a bfloat16 variant) is refused, and the message names both."""
+    with pytest.raises(ValueError, match="preprocess_dtype.*'float32', 'bfloat16'"):
         build()
 
 
