@@ -126,7 +126,11 @@ def resource_usage(name: str) -> list[dict]:
     built: name (with its template arguments), registers, static
     shared memory, spill bytes."""
     build_all((name,))
-    log = _lib_path(name).with_suffix(".log").read_text(errors="replace")
+    return ptxas_rows(_lib_path(name).with_suffix(".log").read_text(errors="replace"))
+
+
+def ptxas_rows(log: str) -> list[dict]:
+    """The kernels of one `nvcc -Xptxas -v` log, as resource_usage gives them."""
     rows = []
     for entry, body in re.findall(r"Compiling entry function '(\w+)'(.*?)(?=Compiling entry|\Z)",
                                   log, flags=re.S):

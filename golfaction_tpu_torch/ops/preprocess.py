@@ -16,10 +16,18 @@ corner-aligned sampling (ops.affine).
   * `crop_resize_normalize_bf16_reference` — plain gather version of the
     bfloat16 crops of the JAX package's `crop_resize_normalize(...,
     dtype=bfloat16)`, rounded where that function rounds.
+  * `division_reciprocals` — the float32 reciprocals the bfloat16 kernel
+    divides by (a reciprocal and one correction), and
+    `division_mismatches`, which holds those divisions to IEEE division on
+    the card.
 """
 
 from __future__ import annotations
 
+import functools
+from fractions import Fraction
+
+import numpy as np
 import torch
 
 from golfaction_tpu_torch.ops import _kernels
@@ -167,22 +175,92 @@ def _check_inputs(frames: torch.Tensor, boxes: torch.Tensor, what: str) -> None:
                          f"boxes {tuple(boxes.shape)} on {boxes.device}")
 
 
-def _launch(symbol: str, frames: torch.Tensor, boxes: torch.Tensor, out_hw, mean, std,
-            dtype: torch.dtype) -> torch.Tensor:
+def _launch(symbol: str, frames: torch.Tensor, boxes: torch.Tensor, out_hw,
+            dtype: torch.dtype, norm) -> torch.Tensor:
     """One launch of `symbol` and nothing else on the device: the kernel
     computes the plain versions' sample coordinates itself, operation by
-    operation."""
+    operation.  `norm`: the kernel's normalization floats, in its order."""
     B, H, W, _ = frames.shape
     oh, ow = out_hw
     out = torch.empty((B, oh, ow, 3), dtype=dtype, device=frames.device)
     if B == 0:
         return out
-    fn = _kernels.bind("preprocess", symbol, "pppiiiiiffffffp")
+    fn = _kernels.bind("preprocess", symbol, "pppiiiii" + "f" * len(norm) + "p")
     rc = fn(_kernels.ptr(frames), _kernels.ptr(boxes), _kernels.ptr(out),
-            B, H, W, oh, ow, *[float(m) for m in mean], *[float(s) for s in std],
-            _kernels.stream_of(frames))
+            B, H, W, oh, ow, *[float(v) for v in norm], _kernels.stream_of(frames))
     _kernels.check(rc, f"{symbol} kernel")
     return out
+
+
+# Divisors and means the bfloat16 kernel's division (a reciprocal and one
+# correction, csrc/preprocess.cu:divide) takes: inside this range no operand,
+# remainder or quotient of its two divisions leaves float32's normal range.
+DIVISION_RANGE = (2.0 ** -40, 2.0 ** 40)
+
+
+def _f32(x: float) -> float:
+    return float(np.float32(x))
+
+
+@functools.lru_cache(maxsize=64)
+def reciprocal_f32(d: float) -> float:
+    """RN(1 / d): the float32 nearest the exact reciprocal of the float32 d."""
+    d = _f32(d)
+    r = np.float32(1.0 / d)              # may round twice: take the nearest neighbour
+    near = (r, np.nextafter(r, np.float32(0)), np.nextafter(r, np.float32(np.inf)))
+    return float(min(near, key=lambda c: abs(Fraction(float(c)) * Fraction(d) - 1)))
+
+
+def division_reciprocals(mean, std) -> tuple[float, ...]:
+    """The bfloat16 kernel's reciprocals, in its launch order: RN(1 / std[c])
+    for each channel, then RN(1 / 255), each of the float32 value the plain
+    version divides by.  Raises for a std that is not positive inside
+    DIVISION_RANGE, or a mean neither 0 nor of a size inside it: there the
+    kernel's quotients could differ from IEEE division's."""
+    lo, hi = DIVISION_RANGE
+
+    def takes(v: float, is_std: bool) -> bool:
+        a = abs(_f32(v))
+        return (lo <= a <= hi and (v > 0 or not is_std)) or (a == 0 and not is_std)
+
+    refused = ([f"std {v}" for v in std if not takes(v, True)]
+               + [f"mean {v}" for v in mean if not takes(v, False)])
+    if refused:
+        raise ValueError(f"crop_resize_normalize_bf16: {', '.join(refused)}: the kernel's "
+                         "division takes a std in [2^-40, 2^40] and a mean of 0 or of a "
+                         "size in it")
+    return (*[reciprocal_f32(s) for s in std], reciprocal_f32(255.0))
+
+
+def division_mismatches(lo: float, hi: float, d: float, guarded: bool,
+                        stride: int = 1) -> tuple[int, int]:
+    """On the card: for how many float32 x in [lo, hi] (both zeros where the
+    range holds 0; with `stride` > 1 every stride-th float counted from the
+    end nearest zero) the bfloat16 kernel's x / d has other bits than IEEE
+    division's: its division by 255 (`guarded` False) or by a std (True).
+    Returns (mismatches, floats checked)."""
+    d = _f32(d)
+    r = reciprocal_f32(d)
+    check = _kernels.bind("preprocess", "preprocess_division_check", "iiiffipp")
+    bad = torch.zeros(1, dtype=torch.int64, device="cuda")
+
+    def bits(x: float) -> int:
+        return int(np.float32(abs(x)).view(np.uint32))
+
+    spans = []                                     # (first pattern, last pattern)
+    if hi >= 0:
+        spans.append((0, bits(hi)) if lo <= 0 else (bits(lo), bits(hi)))
+    if lo <= 0:
+        spans.append((1 << 31, (1 << 31) | bits(lo)) if hi >= 0
+                     else ((1 << 31) | bits(hi), (1 << 31) | bits(lo)))
+    checked = 0
+    for first, last in spans:
+        count = (last - first) // stride + 1
+        rc = check(first, count, stride, d, r, int(guarded), _kernels.ptr(bad),
+                   _kernels.stream_of(bad))
+        _kernels.check(rc, "preprocess_division_check kernel")
+        checked += count
+    return int(bad), checked
 
 
 def crop_resize_normalize_bf16(frames: torch.Tensor, boxes: torch.Tensor,
@@ -194,8 +272,12 @@ def crop_resize_normalize_bf16(frames: torch.Tensor, boxes: torch.Tensor,
     if frames.device.type == "cpu":
         return crop_resize_normalize_bf16_reference(frames, boxes, out_hw, mean, std)
     _check_inputs(frames, boxes, "crop_resize_normalize_bf16")
-    out = _launch("crop_resize_normalize_bf16_launch", frames, boxes, out_hw, mean, std,
-                  torch.bfloat16)
+    H, W = frames.shape[1:3]
+    if H < 1 or W < 1 or 3 * H * W > 2 ** 31 - 1:
+        raise ValueError(f"crop_resize_normalize_bf16: frames of {H}x{W}; the kernel takes "
+                         "1 to 2^31 - 1 bytes a frame")
+    out = _launch("crop_resize_normalize_bf16_launch", frames, boxes, out_hw, torch.bfloat16,
+                  (*mean, *std, *division_reciprocals(mean, std)))
     if out.shape[0]:
         crop_resize_normalize_bf16.launches += 1
     return out
@@ -215,8 +297,8 @@ def crop_resize_normalize(frames: torch.Tensor, boxes: torch.Tensor,
     if frames.device.type == "cpu":
         return crop_resize_normalize_reference(frames, boxes, out_hw, mean, std)
     _check_inputs(frames, boxes, "crop_resize_normalize")
-    out = _launch("crop_resize_normalize_launch", frames, boxes, out_hw, mean, std,
-                  torch.float32)
+    out = _launch("crop_resize_normalize_launch", frames, boxes, out_hw, torch.float32,
+                  (*mean, *std))
     if out.shape[0]:
         crop_resize_normalize.launches += 1
     return out

@@ -1,9 +1,11 @@
 """What the redesigned kernels A (preprocess warp) and B (GCN block tail) rest
 on, checked without a card: the TF32 split of the branch product and its
 fragment layout, the product as the kernel rounds it run through the shipped
-GCN's tails, the tiling helpers, and kernel A's own sample coordinates,
-transcribed to numpy operation by operation.  The kernels themselves are held
-to their plain versions on the card (tests/test_torch_kernels_cuda.py)."""
+GCN's tails, the tiling helpers, kernel A's own sample coordinates and its
+bfloat16 variant (windows, word loads, byte permutes, fused multiply-adds and
+divisions by a reciprocal and one correction), transcribed to numpy
+operation by operation.  The kernels themselves are held to their plain
+versions on the card (tests/test_torch_kernels_cuda.py)."""
 
 from pathlib import Path
 
@@ -243,3 +245,211 @@ def test_division_by_a_tensor_does_not_change_the_cpu_results():
         old = (c - s / 2.0)[:, None] + torch.arange(n, dtype=torch.float32) * (s / (n - 1))[:, None]
         assert torch.equal(preprocess._sample_coords(boxes, n, axis=axis), old)
 
+
+
+# ---------------------------------------------------------------------------
+# (e) Kernel A's bfloat16 variant, operation by operation in numpy: the
+#     two-pixel windows read by aligned word loads, the byte permutes, the
+#     fused multiply-adds and the divisions by reciprocal and one correction.
+# ---------------------------------------------------------------------------
+
+F32, F64 = np.float32, np.float64
+
+
+def rn32(s: np.ndarray, t: np.ndarray) -> np.ndarray:
+    """RN_float32(s + t) for float64 s = fl(a + b) and t its exact error: s
+    rounds to the nearest float32, and t decides only where s is a midpoint
+    between two float32s (t is smaller than s's float64 ulp)."""
+    r = s.astype(F32)
+    up, dn = np.nextafter(r, F32(np.inf)), np.nextafter(r, F32(-np.inf))
+    r = np.where((s == (r.astype(F64) + up.astype(F64)) / 2) & (t > 0), up, r)
+    return np.where((s == (r.astype(F64) + dn.astype(F64)) / 2) & (t < 0), dn, r)
+
+
+def fma32(a, b, c) -> np.ndarray:
+    """__fmaf_rn: a * b (exact in float64) + c with one rounding to float32."""
+    p = np.asarray(a, F32).astype(F64) * np.asarray(b, F32).astype(F64)
+    c = np.broadcast_to(np.asarray(c, F32).astype(F64), p.shape)
+    s = p + c
+    bb = s - p
+    return rn32(s, (p - (s - bb)) + (c - bb))
+
+
+def divide32(x, d, r) -> np.ndarray:
+    """csrc/preprocess.cu:divide."""
+    x = np.asarray(x, F32)
+    q = x * F32(r)
+    return fma32(-fma32(q, d, -x), r, q)
+
+
+def divide32_guarded(x, d, r) -> np.ndarray:
+    """csrc/preprocess.cu:divide_guarded: IEEE division under 2^-100."""
+    x = np.asarray(x, F32)
+    with np.errstate(under="ignore"):
+        return np.where(np.abs(x) < F32(2.0 ** -100), x / F32(d), divide32(x, d, r))
+
+
+def bf16(x) -> np.ndarray:
+    return torch.from_numpy(np.ascontiguousarray(x, F32)).to(torch.bfloat16).float().numpy()
+
+
+def hat(c, s):
+    return bf16(np.maximum(F32(0), F32(1) - np.abs(c - s)))
+
+
+def floor_index(c, size):
+    lo = np.floor(c)
+    return lo, np.maximum(np.minimum(lo, F32(size)), F32(-2)).astype(np.int64)
+
+
+def kernel_window(c, size):
+    """make_window: byte offset of [s, s + 1] in a row, wa, wb, cb."""
+    lo, i = floor_index(c, size)
+    w0 = np.where((i >= 0) & (i < size), hat(c, lo), F32(0))
+    w1 = np.where((i + 1 >= 0) & (i + 1 < size), hat(c, lo + F32(1)), F32(0))
+    s = np.minimum(np.maximum(i, 0), max(size - 2, 0))
+    wa = np.where(s == i, w0, np.where(s == i + 1, w1, F32(0))).astype(F32)
+    wb = np.where(s + 1 == i, w0, np.where(s == i, w1, F32(0))).astype(F32)
+    return 3 * s, wa, wb, -wb * F32(2.0 ** 23)
+
+
+def kernel_row_taps(c, size, row_bytes):
+    """make_row_taps: the two tap rows' byte offsets (clamped) and weights."""
+    lo, i = floor_index(c, size)
+    ok0, ok1 = (i >= 0) & (i < size), (i + 1 >= 0) & (i + 1 < size)
+    return (np.where(ok0, i, 0) * row_bytes, np.where(ok1, i + 1, 0) * row_bytes,
+            np.where(ok0, hat(c, lo), F32(0)), np.where(ok1, hat(c, lo + F32(1)), F32(0)))
+
+
+def kernel_bf16_crops(frames: np.ndarray, boxes: np.ndarray, oh: int, ow: int, lead: int,
+                      rng) -> np.ndarray:
+    """The bfloat16 kernel's crops, its frames placed `lead` bytes past an
+    8-byte boundary among random bytes."""
+    B, H, W, _ = frames.shape
+    fb = 3 * H * W
+    buf = rng.integers(0, 256, lead + B * fb + 8, dtype=np.uint8)
+    buf[lead:lead + B * fb] = frames.reshape(-1)
+    rs = preprocess.division_reciprocals(preprocess.IMAGENET_MEAN, preprocess.IMAGENET_STD)
+    mean, std = (np.asarray(v, F32) for v in (preprocess.IMAGENET_MEAN, preprocess.IMAGENET_STD))
+    big = F32(2.0 ** 23)
+    out = np.empty((B, oh, ow, 3), F32)
+    for b in range(B):
+        start = lead + b * fb
+        fl = start & 7                               # the frame's lead
+        base, last = start - fl, (fl + fb - 1) & ~7
+
+        def word(off):                               # the 32-bit word at base + off
+            a = base + off
+            return sum(buf[a + k].astype(np.uint64) << np.uint64(8 * k) for k in range(4))
+
+        def window(j):                               # load_window: lo, hi as uint64
+            w = j & ~7
+            a, b8 = w, np.minimum(w + 8, last)       # the two 8-byte loads
+            up = (j & 4) != 0
+            w0 = np.where(up, word(a + 4), word(a))
+            w1 = np.where(up, word(b8), word(a + 4))
+            w2 = np.where(up, word(b8 + 4), word(b8))
+            sh = (np.uint64(8) * (j & 3).astype(np.uint64))
+            mask = np.uint64(0xFFFFFFFF)
+            return ((w1 << np.uint64(32) | w0) >> sh) & mask, ((w2 << np.uint64(32) | w1) >> sh) & mask
+
+        def byte_big(w, k):                          # big(): 2^23 + byte k, as a float
+            bits = (np.uint64(0x4B000000) | ((w >> np.uint64(8 * k)) & np.uint64(0xFF)))
+            return bits.astype(np.uint32).view(F32)
+
+        cx = kernel_sample_coords(boxes[b:b + 1, 0], boxes[b:b + 1, 2], ow)[0]
+        cy = kernel_sample_coords(boxes[b:b + 1, 1], boxes[b:b + 1, 3], oh)[0]
+        xoff, wa, wb, cb = kernel_window(cx, W)
+        off0, off1, wy0, wy1 = kernel_row_taps(cy, H, 3 * W)
+        xoff = (xoff + fl)[None, :]
+        rows = []
+        for off in (off0, off1):
+            lo_, hi_ = window(off[:, None] + xoff)
+            rows.append([(byte_big(lo_, ch), byte_big(lo_, 3) if ch == 0 else byte_big(hi_, ch - 1))
+                         for ch in range(3)])
+        for ch in range(3):
+            t = [bf16(fma32(wa, rows[r][ch][0] - big, fma32(wb, rows[r][ch][1], cb)))
+                 for r in range(2)]
+            v = fma32(wy0[:, None], t[0], wy1[:, None] * t[1])
+            q = divide32(v, F32(255), rs[3])
+            out[b, :, :, ch] = divide32_guarded(q - mean[ch], std[ch], rs[ch])
+    return bf16(out)
+
+
+def _bf16_case(kind: str, seed: int):
+    rng = np.random.default_rng(seed)
+    if kind == "odd":
+        h, w = 120, 160
+        boxes = np.array([[80.3, 60.7, 9.0, 12.0], [150.0, 110.0, 6.5, 3.2], [-300.0, 60.0, 50, 50],
+                          [5e6, -3e7, 20.0, 30.0], [80.0, 60.0, 1.0, 1.0], [159.0, 119.0, 1.0, 1.0],
+                          [0.05, -0.1, 0.7, 0.9], [1e-8, 1e-8, 1e-8, 1e-8]], np.float32)
+    else:
+        h, w = {"random": (40, 50), "one_column": (9, 1), "one_row": (1, 11)}[kind]
+        b = 4
+        boxes = np.stack([rng.uniform(-0.2 * w, 1.2 * w, b), rng.uniform(-0.2 * h, 1.2 * h, b),
+                          rng.uniform(0.3, 1.5 * w, b), rng.uniform(0.3, 1.5 * h, b)],
+                         axis=-1).astype(np.float32)
+    frames = rng.integers(0, 256, (len(boxes), h, w, 3), dtype=np.uint8)
+    return frames, boxes, rng
+
+
+@pytest.mark.parametrize("kind", ["random", "odd", "one_column", "one_row"])
+@pytest.mark.parametrize("lead", [0, 1, 3, 6])
+def test_bf16_kernel_arithmetic_equals_the_plain_version_to_the_bit(kind, lead):
+    """The windows (an edge tap moved into the window's other slot, a frame one
+    pixel wide), the word loads from any byte alignment, and every rounding
+    of the variant give the plain version's bits."""
+    frames, boxes, rng = _bf16_case(kind, 5 + lead)
+    oh, ow = 17, 13
+    got = kernel_bf16_crops(frames, boxes, oh, ow, lead, rng)
+    want = preprocess.crop_resize_normalize_bf16_reference(
+        torch.from_numpy(frames), torch.from_numpy(boxes), (oh, ow)).float().numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def _domain_sample(lo: float, hi: float, n: int, rng) -> np.ndarray:
+    """n float32s spread over the bit patterns of [lo, hi], its ends, both
+    zeros where it holds 0, and the smallest normals and subnormals."""
+    def bits(x):
+        return int(np.float32(abs(x)).view(np.uint32))
+    pats = []
+    if hi >= 0:
+        pats.append(rng.integers(0 if lo <= 0 else bits(lo), bits(hi) + 1, n))
+        pats.append(np.array([0, 1, 2, 0x7FFFFF, 0x800000, 0x800001, bits(hi)]))
+    if lo <= 0:
+        pats.append((1 << 31) | rng.integers(0, bits(lo) + 1, n))
+        pats.append((1 << 31) | np.array([0, 1, 0x800000, bits(lo)]))
+    return np.concatenate(pats).astype(np.uint32).view(F32)
+
+
+@pytest.mark.parametrize("channel", [None, 0, 1, 2])
+def test_bf16_kernel_division_is_ieee_division_on_a_sample(channel):
+    """divide(x, 255, RN(1/255)) and divide_guarded(x, std, RN(1/std))
+    against numpy's IEEE float32 division over a sample of their domains:
+    [0, 255], and [-mean, 1 - mean] for each channel (the card enumerates
+    every float of them: chip_smoke.py, phase preprocess_bf16)."""
+    rng = np.random.default_rng(channel or 7)
+    rs = preprocess.division_reciprocals(preprocess.IMAGENET_MEAN, preprocess.IMAGENET_STD)
+    if channel is None:
+        x = _domain_sample(0.0, 255.0, 20000, rng)
+        got, d = divide32(x, F32(255), rs[3]), F32(255)
+    else:
+        m = F32(preprocess.IMAGENET_MEAN[channel])
+        x = _domain_sample(-m, F32(1) - m, 20000, rng)
+        d = F32(preprocess.IMAGENET_STD[channel])
+        got = divide32_guarded(x, d, rs[channel])
+    with np.errstate(under="ignore"):
+        want = x / d
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def test_division_by_std_needs_its_guard_only_for_tiny_dividends():
+    """Without the guard, /std differs from IEEE division only for dividends
+    under 2^-100, whose remainder is subnormal; /255 never does."""
+    rng = np.random.default_rng(3)
+    m, d = F32(preprocess.IMAGENET_MEAN[0]), F32(preprocess.IMAGENET_STD[0])
+    r = preprocess.division_reciprocals(preprocess.IMAGENET_MEAN, preprocess.IMAGENET_STD)[0]
+    x = _domain_sample(-m, F32(1) - m, 200000, rng)
+    with np.errstate(under="ignore"):
+        off = divide32(x, d, r).view(np.uint32) != (x / d).view(np.uint32)
+    assert off.any() and float(np.abs(x[off]).max()) < 2.0 ** -100

@@ -145,6 +145,45 @@ def test_preprocess_bf16_kernel_takes_odd_boxes(dev, kind, oh, ow):
         assert torch.equal(got.cpu(), zero.to(torch.bfloat16).expand_as(got.cpu()))
 
 
+# The variant's divisions (a reciprocal and one correction) against IEEE
+# division over every 101st float32 of their domains; chip_smoke.py
+# enumerates every float of them.
+@pytest.mark.parametrize("channel", [None, 0, 1, 2])
+def test_preprocess_bf16_divisions_are_ieee_division(dev, channel):
+    if channel is None:
+        bad, n = preprocess.division_mismatches(0.0, 255.0, 255.0, False, stride=101)
+    else:
+        m = np.float32(preprocess.IMAGENET_MEAN[channel])
+        bad, n = preprocess.division_mismatches(float(-m), float(np.float32(1) - m),
+                                                preprocess.IMAGENET_STD[channel], True,
+                                                stride=101)
+    assert n > 10 ** 7 and bad == 0
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_preprocess_bf16_division_by_other_stds_is_ieee_division(dev, seed):
+    """Other means and stds inside what the host lets through."""
+    rng = np.random.default_rng(seed)
+    m, sd = np.float32(rng.uniform(-2, 2)), float(np.exp(rng.uniform(-5, 3)))
+    bad, n = preprocess.division_mismatches(float(min(-m, 0)), float(np.float32(1) - m), sd,
+                                            True, stride=1009)
+    assert n > 10 ** 4 and bad == 0
+
+
+def test_preprocess_bf16_kernel_takes_other_normalization(dev):
+    frames, boxes = _frames_boxes(np.random.default_rng(4), 3, 120, 160)
+    f, bx = torch.from_numpy(frames).to(dev), torch.from_numpy(boxes).to(dev)
+    norm = dict(mean=(0.5, 0.0, -0.25), std=(0.3, 1.7, 0.05))
+    got = preprocess.crop_resize_normalize(f, bx, (64, 48), dtype=torch.bfloat16, **norm)
+    want = preprocess.crop_resize_normalize_bf16_reference(f, bx, (64, 48), **norm)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    for bad in (dict(mean=(0.5, 0.5, 0.5), std=(0.2, -0.2, 0.2)),
+                dict(mean=(1e-45, 0.5, 0.5), std=(0.2, 0.2, 0.2))):
+        with pytest.raises(ValueError, match="division"):
+            preprocess.crop_resize_normalize(f, bx, (64, 48), dtype=torch.bfloat16, **bad)
+
+
 def _random_block(C, cin, seed):
     blk = GCNBlock(cin, C, tcfg.GCNConfig(), np.ones((3, 17, 17), np.float32))
     gen = torch.Generator().manual_seed(seed)

@@ -96,6 +96,46 @@ def test_bf16_reference_equals_jax_bit_for_bit(seed, kind):
         assert torch.equal(got, zero.to(torch.bfloat16).expand_as(got))
 
 
+def test_kernel_reciprocals_are_the_correctly_rounded_ones():
+    """The bfloat16 kernel divides by each std and by 255 with RN(1/d) and one
+    correction (csrc/preprocess.cu:divide); the launch passes what
+    division_reciprocals computes: the float32 nearest the exact reciprocal of
+    the float32 divisor that the plain version and JAX divide by."""
+    from fractions import Fraction
+
+    got = tpre.division_reciprocals(tpre.IMAGENET_MEAN, tpre.IMAGENET_STD)
+    divisors = [np.float32(v) for v in tpre.IMAGENET_STD] + [np.float32(255.0)]
+    assert len(got) == 4
+    for r, d in zip(got, divisors):
+        r32 = np.float32(r)
+        assert float(r32) == r
+        exact = 1 / Fraction(float(d))
+        for n in (np.nextafter(r32, np.float32(0)), np.nextafter(r32, np.float32(np.inf))):
+            assert abs(Fraction(float(r32)) - exact) < abs(Fraction(float(n)) - exact)
+    # jnp's float32 constants are the same divisors.
+    assert [float(v) for v in np.asarray(jnp.asarray(tpre.IMAGENET_STD, jnp.float32))] == \
+        [float(v) for v in divisors[:3]]
+
+
+@pytest.mark.parametrize("mean,std,ok", [
+    ((0.0, 0.0, 0.0), (1.0, 1.0, 1.0), True),
+    ((-3.0, 2.0 ** -40, 0.5), (2.0 ** 40, 2.0 ** -40, 7.0), True),
+    ((0.5, 0.5, 0.5), (0.2, 0.0, 0.2), False),
+    ((0.5, 0.5, 0.5), (0.2, -0.2, 0.2), False),
+    ((0.5, 0.5, 0.5), (2.0 ** 41, 0.2, 0.2), False),
+    ((1e-45, 0.5, 0.5), (0.2, 0.2, 0.2), False),
+    ((0.5, 2.0 ** 41, 0.5), (0.2, 0.2, 0.2), False)])
+def test_kernel_division_refuses_what_it_cannot_take(mean, std, ok):
+    """Outside these ranges an operand, remainder or quotient of the kernel's
+    divisions could leave float32's normal range, where a reciprocal and one
+    correction may round otherwise than IEEE division."""
+    if ok:
+        assert len(tpre.division_reciprocals(mean, std)) == 4
+    else:
+        with pytest.raises(ValueError, match="division"):
+            tpre.division_reciprocals(mean, std)
+
+
 @pytest.mark.parametrize("kind", BOX_KINDS)
 def test_float32_entry_point_is_unchanged(kind):
     """At float32 (the default) the entry point is still the float32 gather,
