@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from golfaction_tpu_torch.utils import profiling
+
 
 def box_to_center_scale(boxes: torch.Tensor, aspect_ratio: float,
                         padding: float = 1.25) -> torch.Tensor:
@@ -76,8 +78,9 @@ def heatmap_to_crop_transform(heatmap_hw: tuple[int, int],
     Hc, Wc = crop_hw
     sx = (Wc - 1) / (Wh - 1)
     sy = (Hc - 1) / (Hh - 1)
-    return torch.tensor([[sx, 0.0, 0.0], [0.0, sy, 0.0]], dtype=torch.float32,
-                        device=device)
+    with profiling.host_sync():         # a copy from host memory waits for the stream
+        return torch.tensor([[sx, 0.0, 0.0], [0.0, sy, 0.0]], dtype=torch.float32,
+                            device=device)
 
 
 def compose(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

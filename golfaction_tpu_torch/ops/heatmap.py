@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from golfaction_tpu_torch.ops import _kernels, affine
+from golfaction_tpu_torch.utils import profiling
 
 
 def _peak_coords(heatmaps: torch.Tensor):
@@ -137,7 +138,8 @@ def topk_modes(heatmaps: torch.Tensor, k: int = 4, suppress_radius: float = 3.0,
     flat = heatmaps.reshape(-1, 1, H, W)
     pooled = F.max_pool2d(F.pad(flat, (1, 1, 1, 1), value=float("-inf")), 3, 1)
     pooled = pooled.reshape(heatmaps.shape)
-    neg = torch.tensor(-1e30, dtype=heatmaps.dtype, device=dev)
+    with profiling.host_sync():         # a copy from host memory waits for the stream
+        neg = torch.tensor(-1e30, dtype=heatmaps.dtype, device=dev)
     h = torch.where(heatmaps >= pooled, heatmaps, neg)
     xk, yk, pk = [], [], []
     for _ in range(k):

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from golfaction_tpu_torch.ops import _kernels
+from golfaction_tpu_torch.utils import profiling
 
 _INF = 1e10
 
@@ -491,7 +492,9 @@ def _backtrack(R: torch.Tensor, la: torch.Tensor, lb: torch.Tensor):
     move[:, 0, 1:] = 2
     move[:, 1:, 0] = 1
     move[:, 0, 0] = 3                           # stay
-    back = torch.tensor([Tb + 1, Tb, 1, 0], device=dev)[move].reshape(B, Ta * Tb)
+    with profiling.host_sync():                 # a copy from host memory waits for the stream
+        steps = torch.tensor([Tb + 1, Tb, 1, 0], device=dev)
+    back = steps[move].reshape(B, Ta * Tb)
     p = ((la.to(dev, torch.long) - 1) * Tb + lb.to(dev, torch.long) - 1)[:, None]
     rev = torch.empty((B, L), dtype=torch.long, device=dev)
     for s in range(L):
@@ -535,7 +538,10 @@ def warp_by_path(ref_vals: torch.Tensor, path: torch.Tensor, length, T: int) -> 
     rj = torch.gather(rj, 1, order)
     w = torch.gather(lmask, 1, order).float()
     pos = torch.arange(L, device=dev) - torch.searchsorted(ti, ti)   # place in its run
-    S = int(pos.max()) + 1 if L else 1
+    S = 1
+    if L:
+        with profiling.host_sync():
+            S = int(pos.max()) + 1
     n = torch.arange(N, device=dev)[:, None].expand(N, L)
     acc = torch.zeros((N, T + 1, S, *ref_vals.shape[1:]), dtype=torch.float32, device=dev)
     acc[n, ti, pos] = ref_vals[rj].float() * w.reshape(N, L, *extra)

@@ -39,6 +39,7 @@ from golfaction_tpu_torch.models.refine import KeypointRefiner
 from golfaction_tpu_torch.ops import affine, heatmap, preprocess, softdtw
 from golfaction_tpu_torch.parallel import mesh as mesh_mod
 from golfaction_tpu_torch.pipeline import video_io
+from golfaction_tpu_torch.utils.profiling import span
 
 
 def resolve_device(device) -> torch.device:
@@ -174,7 +175,8 @@ class Pipeline:
         up to whole-frame crops, so it owes nothing to the host's box
         estimate and survives camera motion), takes tight boxes from its
         keypoints, interpolates them to every frame and smooths them."""
-        return self._pose_pass(frames, self._refined_boxes(frames, boxes))
+        with span("pose"):
+            return self._pose_pass(frames, self._refined_boxes(frames, boxes))
 
     def _refined_boxes(self, frames: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
         """boxes [N, T, 4] after the keypoint-seeded refinement of
@@ -261,16 +263,19 @@ class Pipeline:
         crop_dtype = getattr(torch, c.preprocess_dtype)
         decs, moms = [], []
         for s in range(0, N * T, mb):
-            hm = self.pose_model(self._context_crops(flat_f, flat_b, s, mb, T,
-                                                     crop_dtype))  # [mb, V, Hh, Wh]
-            if track_k:
-                decs.append(heatmap.topk_modes(
-                    hm, k=track_k, suppress_radius=c.pose.track_suppress_radius))
-            else:
-                decs.append(heatmap.decode_heatmaps(hm, method="udp" if c.pose.udp
-                                                    else "quarter"))
-            if want_spread:
-                moms.append(heatmap.moment_stats(hm))
+            with span("pose.crops"):
+                crops = self._context_crops(flat_f, flat_b, s, mb, T, crop_dtype)
+            with span("pose.net"):
+                hm = self.pose_model(crops)                        # [mb, V, Hh, Wh]
+            with span("pose.decode"):
+                if track_k:
+                    decs.append(heatmap.topk_modes(
+                        hm, k=track_k, suppress_radius=c.pose.track_suppress_radius))
+                else:
+                    decs.append(heatmap.decode_heatmaps(hm, method="udp" if c.pose.udp
+                                                        else "quarter"))
+                if want_spread:
+                    moms.append(heatmap.moment_stats(hm))
         dec = torch.cat(decs, dim=0)
         spread = None
         if want_spread:
@@ -281,22 +286,27 @@ class Pipeline:
             floor = ((c.pose.sigma * sc) ** 2).expand(*cov.shape[:2], 1)
             spread = torch.cat([cov, floor], dim=-1).reshape(N, T, V, 4)
         if not track_k:
-            kpts = heatmap.keypoints_to_image(dec, flat_b, c.pose.heatmap_hw,
-                                              c.pose.input_hw)
+            with span("pose.decode"):
+                kpts = heatmap.keypoints_to_image(dec, flat_b, c.pose.heatmap_hw,
+                                                  c.pose.input_hw)
             return kpts.reshape(N, T, V, 3), spread
-        # Viterbi runs in image space, normalized by the clip-mean crop scale
-        # so track_lambda keeps heatmap-px² units at any resolution.
-        img = heatmap.keypoints_to_image(dec.reshape(N * T, V * track_k, 3), flat_b,
-                                         c.pose.heatmap_hw, c.pose.input_hw)
-        img = img.reshape(N, T, V, track_k, 3)
-        s = (boxes[..., 3].mean(1) / c.pose.heatmap_hw[0])[:, None, None, None]   # [N,1,1,1]
-        norm = torch.cat([img[..., :2] / s[..., None], img[..., 2:]], dim=-1)
-        # One Viterbi over all clips: time leads, the clip axis is a batch dim.
-        tr = heatmap.viterbi_track(norm.transpose(0, 1), lam=c.pose.track_lambda).transpose(0, 1)
-        kpts = torch.cat([tr[..., :2] * s, tr[..., 2:]], dim=-1)               # [N,T,V,3]
+        with span("pose.track"):
+            # Viterbi runs in image space, normalized by the clip-mean crop scale
+            # so track_lambda keeps heatmap-px² units at any resolution.
+            img = heatmap.keypoints_to_image(dec.reshape(N * T, V * track_k, 3), flat_b,
+                                             c.pose.heatmap_hw, c.pose.input_hw)
+            img = img.reshape(N, T, V, track_k, 3)
+            s = (boxes[..., 3].mean(1) / c.pose.heatmap_hw[0])[:, None, None, None]  # [N,1,1,1]
+            norm = torch.cat([img[..., :2] / s[..., None], img[..., 2:]], dim=-1)
+            # One Viterbi over all clips: time leads, the clip axis is a batch dim.
+            tr = heatmap.viterbi_track(norm.transpose(0, 1),
+                                       lam=c.pose.track_lambda).transpose(0, 1)
+            kpts = torch.cat([tr[..., :2] * s, tr[..., 2:]], dim=-1)           # [N,T,V,3]
         if not want_modes:
             return kpts, spread
-        aux = _secondary_modes(img.reshape(N * T, V, track_k, 3), kpts.reshape(N * T, V, 3))
+        with span("pose.modes"):
+            aux = _secondary_modes(img.reshape(N * T, V, track_k, 3),
+                                   kpts.reshape(N * T, V, 3))
         return kpts, aux.reshape(N, T, V, 4)
 
     def _core_fn(self, frames, boxes, valid) -> dict:
@@ -308,12 +318,13 @@ class Pipeline:
         """The core after the pose stage: [keypoint refiner ->] skeleton
         normalize -> GCN -> error head, on keypoints [N, T, V, 3] and the
         pose aux block (or None)."""
-        if self.refine_model is not None:
-            kpts = self.refine_model(kpts, valid)
-        sk = normalize_skeleton(kpts, valid)
-        logits = self.gcn_model(sk, valid)
-        err = self.error_model(kpts, logits, valid, None, aux)
-        labels = torch.where(valid, logits.argmax(-1), -1).to(torch.int32)
+        with span("heads"):
+            if self.refine_model is not None:
+                kpts = self.refine_model(kpts, valid)
+            sk = normalize_skeleton(kpts, valid)
+            logits = self.gcn_model(sk, valid)
+            err = self.error_model(kpts, logits, valid, None, aux)
+            labels = torch.where(valid, logits.argmax(-1), -1).to(torch.int32)
         out = {"keypoints": kpts, "phase_logits": logits, "phase_labels": labels,
                "error_logits": err}
         if aux is not None:
@@ -326,21 +337,28 @@ class Pipeline:
         cost [N], path [N, T+Tr-1, 2], path_length [N], plus error_logits
         [N, E] refined with the deviation features when phase_logits given."""
         c = self.cfg
-        sa = normalize_skeleton(kpts, valid)
-        sr = normalize_skeleton(ref_kpts[None], ref_valid[None])
-        ea = self.align_model(sa, valid)                            # [N, T, D]
-        er = self.align_model(sr, ref_valid[None])                  # [1, Tr, D]
-        D = softdtw.pairwise_sqdist(ea, er.expand(ea.shape[0], *er.shape[1:]))
-        D = D.contiguous()
-        N = D.shape[0]
-        la = valid.sum(-1).clamp(min=1).to(torch.int32)
-        lb = ref_valid.sum().clamp(min=1).to(torch.int32).expand(N)
-        cost = softdtw.softdtw_cost_masked(D, la, lb, c.align.gamma)
-        path, length = softdtw.dtw_path_masked(D, la, lb)
-        out = {"cost": cost, "path": path, "path_length": length}
-        if phase_logits is not None:
-            ref_warp = softdtw.warp_by_path(ref_kpts, path, length, kpts.shape[1])
-            out["error_logits"] = self.error_model(kpts, phase_logits, valid, ref_warp, aux)
+        with span("align"):
+            with span("align.encode"):
+                sa = normalize_skeleton(kpts, valid)
+                sr = normalize_skeleton(ref_kpts[None], ref_valid[None])
+                ea = self.align_model(sa, valid)                    # [N, T, D]
+                er = self.align_model(sr, ref_valid[None])          # [1, Tr, D]
+                D = softdtw.pairwise_sqdist(ea, er.expand(ea.shape[0], *er.shape[1:]))
+                D = D.contiguous()
+            N = D.shape[0]
+            la = valid.sum(-1).clamp(min=1).to(torch.int32)
+            lb = ref_valid.sum().clamp(min=1).to(torch.int32).expand(N)
+            with span("align.cost"):
+                cost = softdtw.softdtw_cost_masked(D, la, lb, c.align.gamma)
+            with span("align.path"):
+                path, length = softdtw.dtw_path_masked(D, la, lb)
+            out = {"cost": cost, "path": path, "path_length": length}
+            if phase_logits is not None:
+                with span("align.warp"):
+                    ref_warp = softdtw.warp_by_path(ref_kpts, path, length, kpts.shape[1])
+                with span("align.error"):
+                    out["error_logits"] = self.error_model(kpts, phase_logits, valid,
+                                                           ref_warp, aux)
         return out
 
     def _align_fn(self, kpts_a, valid_a, kpts_b, valid_b) -> dict:

@@ -1,13 +1,17 @@
-"""Stage timing and device traces: the counterpart of the JAX package's
-`golfaction_tpu/utils/profiling.py`.
+"""Spans, counters, stage timing and device traces: the counterpart of the
+JAX package's `golfaction_tpu/utils/profiling.py`.
 
-`StageTimer` accumulates wall time per named stage, each stage annotated in
-the profiler's trace (`torch.profiler.record_function`) and, when given a
-CUDA fence, closed by a `torch.cuda.synchronize` of that device, so that a
-stage's time includes the device work it enqueued.  `device_trace` records
-a `torch.profiler` trace of the host and the card and writes it as a Chrome
-trace.  `value_fence` and `timed_blocked` force completion by fetching a
-value to the host, as the JAX ones do.
+`span(name)` and `count(name, n)` are the program's own instrumentation,
+kept in memory (`recorded()`, `reset()`) while a `torch.profiler` profile is
+active in the calling thread, and nothing otherwise: an edge then costs one
+check of the profiler's state.  A recorded span is also a
+`record_function` range, so a trace of host activity shows it.
+`StageTimer` accumulates wall time per named stage, each stage a span and,
+when given a CUDA fence, closed by a `torch.cuda.synchronize` of that
+device, so that a stage's time includes the device work it enqueued.
+`device_trace` records a `torch.profiler` trace of the host and the card
+and writes it as a Chrome trace.  `value_fence` and `timed_blocked` force
+completion by fetching a value to the host, as the JAX ones do.
 
 The JAX module's `enable_compile_cache` has no counterpart: the port has no
 jit to cache, and its hand-written kernels are compiled once and kept in
@@ -17,12 +21,133 @@ jit to cache, and its hand-written kernels are compiled once and kept in
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import itertools
 import json
 import os
+import threading
 import time
 from typing import Any, Optional
 
 import torch
+
+# True while a torch.profiler profile (any activities, CUDA alone too) is
+# active in the calling thread.
+_profiling = torch.autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
+
+
+@dataclasses.dataclass(frozen=True)
+class SpanRecord:
+    """One closed span: `perf_counter_ns` stamps, its own id, the id of the
+    span it opened in (None at the top level) and of its top-level span,
+    which identifies the request."""
+
+    name: str
+    start_ns: int
+    end_ns: int
+    id: int
+    parent: Optional[int]
+    top: int
+
+
+@dataclasses.dataclass(frozen=True)
+class CountRecord:
+    """One counter increment, with the innermost and the top-level span open
+    where it was counted (None outside any span)."""
+
+    name: str
+    n: int
+    span: Optional[int]
+    top: Optional[int]
+
+
+@dataclasses.dataclass(frozen=True)
+class Recorded:
+    """A snapshot: spans in the order they closed, counts in the order they
+    were made, and how many records the full buffer turned away."""
+
+    spans: tuple
+    counts: tuple
+    dropped: int
+
+
+class Recorder:
+    """Spans and counters kept in a bounded buffer while the profiler is on.
+    Nesting is per thread; ids are unique across threads."""
+
+    def __init__(self, capacity: int = 1 << 16):
+        self.capacity = capacity
+        self._local = threading.local()
+        self._lock = threading.Lock()
+        self._ids = itertools.count()
+        self.reset()
+
+    def reset(self) -> None:
+        with self._lock:
+            self._spans, self._counts, self._dropped = [], [], 0
+
+    def recorded(self) -> Recorded:
+        with self._lock:
+            return Recorded(tuple(self._spans), tuple(self._counts), self._dropped)
+
+    def span(self, name: str):
+        """A context manager: a recorded span while the profiler is on, else
+        a shared no-op."""
+        return self._open(name) if _profiling() else _OFF
+
+    def count(self, name: str, n: int = 1) -> None:
+        """Count `n` of `name` here, while the profiler is on."""
+        if _profiling():
+            stack = self._stack()
+            self._keep(self._counts, CountRecord(name, n, stack[-1] if stack else None,
+                                                 stack[0] if stack else None))
+
+    def _stack(self) -> list:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+    def _keep(self, into: list, record) -> None:
+        with self._lock:
+            if len(self._spans) + len(self._counts) < self.capacity:
+                into.append(record)
+            else:
+                self._dropped += 1
+
+    @contextlib.contextmanager
+    def _open(self, name: str):
+        stack = self._stack()
+        sid = next(self._ids)
+        parent = stack[-1] if stack else None
+        top = stack[0] if stack else sid
+        stack.append(sid)
+        with torch.profiler.record_function(name):
+            t0 = time.perf_counter_ns()
+            try:
+                yield
+            finally:
+                t1 = time.perf_counter_ns()
+                stack.pop()
+                self._keep(self._spans, SpanRecord(name, t0, t1, sid, parent, top))
+
+
+RECORDER = Recorder()
+span = RECORDER.span
+count = RECORDER.count
+recorded = RECORDER.recorded
+reset = RECORDER.reset
+
+
+def host_sync():
+    """A span around a point where the host waits for the card, counted in
+    `host_syncs`: a read of a device value, or a copy from pageable host
+    memory (`torch.tensor(..., device=card)`), which synchronizes the stream."""
+    if not _profiling():
+        return _OFF
+    count("host_syncs")
+    return RECORDER._open("sync")
 
 
 def _cuda_device(fence: Any) -> Optional[torch.device]:
@@ -44,13 +169,13 @@ class StageTimer:
 
     @contextlib.contextmanager
     def stage(self, name: str, fence: Any = None):
-        """Time a stage under a profiler annotation of its name.
+        """Time a stage inside a span of its name.
 
         `fence`: a CUDA tensor or device, synchronized before the timer
         stops; else the stage's time is the host's alone (the card runs
         asynchronously)."""
         dev = _cuda_device(fence)
-        with torch.profiler.record_function(name):
+        with span(name):
             t0 = time.perf_counter()
             yield
             if dev is not None:
@@ -73,7 +198,12 @@ class StageTimer:
 def device_trace(log_dir: Optional[str] = None):
     """Record a torch.profiler trace (host, and the card where there is one)
     around a code region and write it to `log_dir` as a Chrome trace
-    (chrome://tracing, Perfetto).  No-op when log_dir is None."""
+    (chrome://tracing, Perfetto).  No-op when log_dir is None.
+
+    Around `Pipeline.analyze_batch` (or any call into the per-chunk
+    program) the trace shows the program's spans (`pose`, `pose.net`,
+    `align.path`, `sync`, ...) as host ranges over the kernels they
+    launched; `recorded()` holds the same spans and the counters."""
     if log_dir is None:
         yield
         return
