@@ -66,7 +66,12 @@ Phases (each prints one line; any failure exits non-zero):
                against the same program on the CPU (2 clips x 20 frames):
                the keypoint gaps held to the CPU's own bfloat16-to-float32
                noise, the labels' agreement with the float32 run, the pose
-               network's milliseconds at each dtype
+               network's milliseconds at each dtype; then `group_norm`:
+               kernel G at the 20 launch sites of one pose-net call on 64
+               of those crops against its plain version (one bfloat16 ulp,
+               bit-equal on >= 99.9%), its times beside its byte bound, the
+               plain version's and F.group_norm's, every cluster, and the
+               net with G against the net with the plain GroupNorms
  11. batch_overlap  analyze_batch of 12 clips in 3 chunks (pinned staging,
                the copy on a side stream one chunk ahead) against three
                one-chunk calls: equal to the bit with deterministic cuDNN;
@@ -148,7 +153,12 @@ Then a {"kernels": [...]} line and, last, {"ok": true, "device": {...}}.
     python3 chip_smoke.py --options-repeats N
 
 runs only the options phase, N times on the same clips (a record of whether
-`options_cpu` ever fails).
+`options_cpu` ever fails), and
+
+    python3 chip_smoke.py --group-norm
+
+only the build and kernel G's phase (`group_norm`: parity at the 20 launch
+sites of a shipped pose-net call, times, layouts, the net with and without G).
 
 A kernel's `launches` counts calls of its wrapper, summed over the driven
 paths (4, 6-9, 11-18; the bench counts its own, in its process, from its
@@ -365,6 +375,16 @@ def requant_bytes_ops(numel: int, C: int, res_mode: int, out_bytes: int):
     GroupNorm."""
     nbytes = numel * (4 + (0, 1, 4)[res_mode] + out_bytes) + C * 4 * (3, 3, 6)[res_mode]
     return nbytes, numel * (13 + (0, 2, 9)[res_mode])
+
+
+def group_norm_bytes_ops(numel: int, C: int, mode: int):
+    """x read once (2 B), the residual or the shortcut's input once (2 B),
+    the output written once (2 B), weight and bias once per GroupNorm; about
+    12 float operations per element (two sums, normalize, round, relu), 2
+    more for a residual add, 11 for a second GroupNorm and its add."""
+    gns = 2 if mode == 2 else 1
+    nbytes = numel * (4 + (0, 2, 2)[mode]) + gns * C * 8
+    return nbytes, numel * (12 + (0, 2, 11)[mode])
 
 
 def decode_edge_rows(H: int, W: int) -> np.ndarray:
@@ -893,6 +913,110 @@ def int8_phase(counters, err: dict) -> tuple[dict, dict]:
     return launches, entry
 
 
+def group_norm_phase(pose_model, crops) -> dict:
+    """Kernel G at the 20 launch sites (23 GroupNorms) of one call of the
+    shipped bfloat16 pose net on a micro-batch of real crops: each site
+    against its plain version (within one bfloat16 ulp a rounding, at the
+    largest term of its sum, and bit-equal on at least 99.9% of elements),
+    each distinct site's time by events and in a graph beside its byte
+    bound, its plain version's and the library's (F.group_norm on the same
+    bfloat16 channels-last input, GroupNorm alone), the kernel under every
+    cluster the card takes, and the whole net with G and with the plain
+    version.  Returns G's entry for the kernels line."""
+    from golfaction_tpu_torch.ops import group_norm as kernel_g
+    from tests.test_torch_group_norm_cuda import site_gap
+
+    real, plain_fn = kernel_g.group_norm_act, kernel_g.group_norm_act_plain
+    sites, kept = [], {}
+
+    def both(x, groups, weight, bias, residual=None, x2=None, weight2=None, bias2=None,
+             relu=True):
+        a = (x, groups, weight, bias, residual, x2, weight2, bias2, relu)
+        got = real(*a)
+        mode = 1 if residual is not None else 2 if x2 is not None else 0
+        N, C = x.shape[0], x.shape[-1]
+        site = {"R": x.numel() // (N * C), "C": C,
+                "epilogue": ("relu", "residual", "shortcut")[mode], **site_gap(got, a)}
+        site["ok"] = site["gap_over_allowed"] <= 1.0 and site["bit_equal"] >= 0.999
+        sites.append(site)
+        key = (site["R"], C, mode)
+        if key in kept:
+            kept[key]["count"] += 1
+        else:
+            kept[key] = {"count": 1, "args": a, "mode": mode}
+        return got
+
+    kernel_g.group_norm_act = both
+    try:
+        with torch.inference_mode():
+            pose_model(crops)
+        torch.cuda.synchronize()
+    finally:
+        kernel_g.group_norm_act = real
+    N = int(crops.shape[0])
+    check(len(sites) == 20, f"a pose-net call has {len(sites)} GroupNorm launches, not 20")
+    say("parity_group_norm", batch=N, sites=sites, distinct_shapes=len(kept),
+        limit="one bfloat16 ulp a rounding, at the largest term of its sum "
+              "(tests/test_torch_group_norm_cuda.py:term_ulp); bit-equal on >= 0.999")
+    check(all(s_["ok"] for s_ in sites), "kernel G disagrees with its plain version")
+
+    dev = crops.device
+    max_cluster, sms, l2 = kernel_g.card_limits(dev)
+    tot = {"ms": 0.0, "graph_ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "ops": 0.0,
+           "library_ms": 0.0}
+    per_shape = []
+    with torch.inference_mode():
+        for (R, C, mode), k in kept.items():
+            a = k["args"]
+            x, groups, weight, bias = a[:4]
+            ms = cuda_ms(lambda: real(*a), reps=10)
+            gms = graph_ms(lambda: real(*a), calls=10, reps=5)
+            plain = cuda_ms(lambda: plain_fn(*a), reps=5, warmup=1)
+            nb, ops = group_norm_bytes_ops(x.numel(), C, mode)
+            bms, by = bound(nb, ops)
+            chosen = kernel_g.launch_geometry(N, R, C, groups, 2 if mode == 2 else 1,
+                                              max_cluster, sms, l2)
+            out = torch.empty_like(x)
+            layouts = {}
+            for c in (1, 2, 4, 8, 16):
+                if c <= max_cluster and c != chosen.cluster:
+                    geo = kernel_g.launch_geometry(N, R, C, groups, 2 if mode == 2 else 1,
+                                                   cluster=c)
+                    layouts[f"cluster {c}, {'staged' if geo.staged else 're-read'}"] = graph_ms(
+                        lambda: kernel_g.launch(out, geo, *a), calls=10, reps=5)
+            xn, wb, bb = x.movedim(-1, 1), weight.bfloat16(), bias.bfloat16()
+            lib = cuda_ms(lambda: F.group_norm(xn, groups, wb, bb, eps=1e-6), reps=10)
+            per_shape.append({"R": R, "C": C, "epilogue": ("relu", "residual", "shortcut")[mode],
+                              "sites": k["count"], "cluster": chosen.cluster,
+                              "staged": chosen.staged, "smem": chosen.smem, "ms": ms,
+                              "graph_ms": gms, "plain_ms": plain, "bound_ms": bms,
+                              "bound_by": by, "library_ms": lib,
+                              "other_layouts_graph_ms": layouts})
+            for key, v in (("ms", ms), ("graph_ms", gms), ("plain_ms", plain), ("bytes", nb),
+                           ("ops", ops), ("library_ms", lib)):
+                tot[key] += v * k["count"]
+        net_ms = cuda_ms(lambda: pose_model(crops), reps=10)
+        kernel_g.group_norm_act = plain_fn
+        try:
+            net_plain_ms = cuda_ms(lambda: pose_model(crops), reps=10)
+        finally:
+            kernel_g.group_norm_act = real
+    kept.clear()
+    say("time_group_norm_sites", per_shape=per_shape,
+        pose_net_ms={"crops": N, "kernel_g": net_ms, "plain_group_norms": net_plain_ms})
+    bms, by = bound(tot["bytes"], tot["ops"])
+    return dict(name="group_norm_act", route="cuda",
+                source="golfaction_tpu_torch/csrc/group_norm.cu",
+                replaces="none: the JAX package leaves this GroupNorm to XLA",
+                launches=0, max_abs_err=max(s_["max_abs_err"] for s_ in sites),
+                ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=bms, bound_by=by,
+                library_ms=tot["library_ms"], graph_ms=tot["graph_ms"],
+                shape=f"the 20 launches (23 GroupNorms) of one shipped pose-net call at batch "
+                      f"{N} (library_ms is F.group_norm alone on each site's bfloat16 input, "
+                      f"summed over the sites as ms is)",
+                bytes=tot["bytes"], ops=tot["ops"])
+
+
 def options_phase(clips, boxes, counters) -> dict:
     """The pose pass's options on the card: box refinement with the shipped
     model, then temporal context, spread features and the refiner together
@@ -1095,6 +1219,30 @@ def requant_occupancy(requant) -> dict:
     return {"largest_cluster": max_cluster, "sms": sms, "l2_bytes": l2, "sites": sites}
 
 
+def group_norm_occupancy() -> dict:
+    """Kernel G's launch at each distinct site shape of a shipped pose-net
+    call at batch 64: cluster, rows a block, staged or not, shared memory,
+    blocks per SM and clusters the card holds at once."""
+    from golfaction_tpu_torch.ops import _kernels
+    from golfaction_tpu_torch.ops import group_norm as kernel_g
+
+    from tests.test_torch_group_norm import SITES
+
+    max_cluster, sms, l2 = kernel_g.card_limits(torch.device("cuda"))
+    clusters = _kernels.bind("group_norm", "group_norm_max_active_clusters", "iiii")
+    per_sm = _kernels.bind("group_norm", "group_norm_blocks_per_sm", "iii")
+    sites = []
+    for R, C, mode in dict.fromkeys((H * W, C, mode) for _, H, W, C, mode in SITES):
+        g = kernel_g.launch_geometry(64, R, C, min(32, C), 2 if mode == 2 else 1,
+                                     max_cluster, sms, l2)
+        sites.append({"R": R, "C": C, "epilogue": ("relu", "residual", "shortcut")[mode],
+                      "cluster": g.cluster, "rows_a_block": g.rpb, "staged": g.staged,
+                      "smem": g.smem, "threads": g.threads,
+                      "blocks_per_sm": per_sm(mode, g.threads, g.smem),
+                      "max_active_clusters": clusters(mode, g.cluster, g.threads, g.smem)})
+    return {"largest_cluster": max_cluster, "sms": sms, "l2_bytes": l2, "sites": sites}
+
+
 def wavefront_occupancy(softdtw) -> dict:
     """Kernel C's launch at [4, 64, 64] (compare) and [96, 48, 48] (one
     train_align step): rows a lane, warps a table, tables a block, staged,
@@ -1176,11 +1324,15 @@ def kernel_rows_busy_ms(prof) -> float:
 
 def pose_layers_on_cpu(net, crops) -> list:
     """[(module name, input, output)] of every convolution and GroupNorm of
-    the port's PoseNet `net` (on the CPU) on `crops`, in forward order."""
+    the port's PoseNet `net` (on the CPU) on `crops`: the convolutions in
+    forward order, then the GroupNorms.  The net calls no GroupNorm module (each goes with its ReLU and residual
+    through `precision.group_norm_act`), so each GroupNorm's layer is its
+    module on the output of the convolution before it."""
     from golfaction_tpu_torch.models import pose as pose_mod
-    from golfaction_tpu_torch.models.precision import GroupNorm
 
-    kinds = (pose_mod.SameConv2d, pose_mod.Deconv2d, pose_mod.Project, GroupNorm)
+    kinds = (pose_mod.SameConv2d, pose_mod.Deconv2d, pose_mod.Project)
+    norm_of = {"stem": "gn0", "conv1": "gn1", "conv2": "gn2", "proj": "gn3"}
+    mods = dict(net.named_modules())
     layers, hooks = [], []
     for name, mod in net.named_modules():
         if isinstance(mod, kinds):
@@ -1189,6 +1341,13 @@ def pose_layers_on_cpu(net, crops) -> list:
     try:
         with torch.inference_mode():
             net(crops)
+            for name, _, out in list(layers):
+                head, _, last = name.rpartition(".")
+                gn = (f"dgns.{last}" if head == "deconvs"
+                      else ".".join(filter(None, (head, norm_of.get(last, "")))))
+                if gn in mods and last in norm_of or head == "deconvs":
+                    out = out.contiguous(memory_format=torch.channels_last)
+                    layers.append((gn, out, mods[gn](out)))
     finally:
         for h in hooks:
             h.remove()
@@ -2475,6 +2634,37 @@ def options_repeat(runs: int) -> int:
     return 1 if failed else 0
 
 
+def group_norm_only() -> int:
+    """`python3 chip_smoke.py --group-norm`: the build and kernel G's phase
+    alone (its occupancy, then `group_norm_phase` on the shipped model and a
+    micro-batch of the smoke's crops), and G's `time` line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 2
+    from golfaction_tpu_torch.ops import _kernels, affine, preprocess
+    from golfaction_tpu_torch.pipeline.orchestrator import Pipeline
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip())
+    _kernels.build_all(("group_norm",))
+    say("resources", ptxas={"group_norm": _kernels.resource_usage("group_norm")},
+        group_norm=group_norm_occupancy())
+    pipe = Pipeline.from_artifacts("artifacts", device="cuda")
+    oh, ow = pipe.cfg.pose.input_hw
+    clips, boxes = smoke_clips()
+    fb = pipe.cfg.frame_batch
+    dev = torch.device("cuda")
+    frames = torch.from_numpy(clips[0][:fb]).to(dev)
+    bx = affine.box_to_center_scale(torch.from_numpy(boxes[0][:fb]).to(dev), ow / oh)
+    with torch.inference_mode():
+        crops = preprocess.crop_resize_normalize(frames, bx.contiguous(), (oh, ow))
+    entry = group_norm_phase(pipe.pose_model, crops)
+    say("time", **{k: entry[k] for k in TIME_KEYS if k in entry})
+    return 0
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -2520,7 +2710,7 @@ def main() -> int:
     crop_occ = _kernels.bind("preprocess", "crop_resize_normalize_blocks_per_sm", "i")
     say("resources", ptxas={n: _kernels.resource_usage(n)
                             for n in ("preprocess", "gcn_tail", "softdtw", "softdtw_bwd",
-                                      "requant")},
+                                      "requant", "group_norm")},
         blocks_per_sm={"crop_resize_normalize": crop_occ(0),
             "crop_resize_normalize_bf16": crop_occ(1),
             "gcn_tail [rows, taps, gates, apply]": {
@@ -2528,7 +2718,7 @@ def main() -> int:
                 for C in (64, 128, 256)},
             "softdtw_wavefront": wavefront_occupancy(softdtw),
             "softdtw_backward": backward_occupancy(softdtw)},
-        requant=requant_occupancy(requant))
+        requant=requant_occupancy(requant), group_norm=group_norm_occupancy())
     lap("device_build")
     pipe = Pipeline.from_artifacts("artifacts", device="cuda")     # the shipped dtype
     pipe32 = Pipeline.from_artifacts("artifacts", device="cuda", overrides=FLOAT32)
@@ -2843,8 +3033,12 @@ def main() -> int:
     with torch.inference_mode():
         crops = preprocess.crop_resize_normalize(frames_a, boxes_a, (oh, ow))
     shipped_bf16_phase(pipe, pipe32, cpu, clips, boxes, crops)
-    del crops, pipe32, cpu
+    del pipe32, cpu
     lap("shipped_bf16")
+    group_norm_entry = group_norm_phase(pipe.pose_model, crops)
+    say("time", **{k: group_norm_entry[k] for k in TIME_KEYS if k in group_norm_entry})
+    del crops
+    lap("group_norm")
     paths = {"main": launches,
              "batch_overlap": batch_overlap_phase(clips, boxes, reference, counters)}
     lap("batch_overlap")
@@ -2885,8 +3079,9 @@ def main() -> int:
     paths.update(bf16_paths)
     entries.append(bf16_entry)
     lap("preprocess_bf16")
+    entries.append(group_norm_entry)
     names = ("preprocess", "gcn_tail", "softdtw", "decode", "softdtw_bwd", "requant",
-             "preprocess_bf16")
+             "preprocess_bf16", "group_norm")
     for en, k in zip(entries, names):
         en["launches"] = sum(p.get(k, 0) for p in paths.values())
         check(en["launches"] > 0, f"kernel {k} was launched on no driven path")
@@ -2904,4 +3099,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--options-repeats"]:
         sys.exit(options_repeat(int(sys.argv[2])))
+    if sys.argv[1:2] == ["--group-norm"]:
+        sys.exit(group_norm_only())
     sys.exit(main())

@@ -173,12 +173,14 @@ def graph_ms(fn, calls: int = 20, reps: int = 10) -> float:
 
 def kernel_counters() -> dict:
     """Each kernel's wrapper, which counts its launches."""
-    from golfaction_tpu_torch.ops import gcn_tail, heatmap, preprocess, requant, softdtw
+    from golfaction_tpu_torch.ops import (gcn_tail, group_norm, heatmap, preprocess, requant,
+                                          softdtw)
 
     return {"preprocess": preprocess.crop_resize_normalize, "gcn_tail": gcn_tail.gcn_block_tail,
             "softdtw": softdtw.wavefront, "decode": heatmap.decode_heatmaps,
             "softdtw_bwd": softdtw.softdtw_backward, "requant": requant.requant_epilogue,
-            "preprocess_bf16": preprocess.crop_resize_normalize_bf16}
+            "preprocess_bf16": preprocess.crop_resize_normalize_bf16,
+            "group_norm": group_norm.group_norm_act}
 
 
 def e2e_lengths(n: int) -> list:

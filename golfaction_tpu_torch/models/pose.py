@@ -8,7 +8,9 @@ floor half), and GroupNorm uses flax's epsilon 1e-6.
 
 `PoseConfig.dtype` sets the compute dtype as flax's does
 (models/precision.py); the heatmaps come out float32 either way, so the
-decode sees float32.
+decode sees float32.  Each GroupNorm goes with the ReLU (and the residual
+add) after it through `precision.group_norm_act`: in bfloat16 on the card
+one launch of kernel G, on the activations' channels-last memory.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from golfaction_tpu_torch.config import PoseConfig
-from golfaction_tpu_torch.models.precision import GroupNorm, compute_dtype
+from golfaction_tpu_torch.models.precision import GroupNorm, compute_dtype, group_norm_act
 
 _GN_EPS = 1e-6
 
@@ -90,10 +92,10 @@ class ResBlock(nn.Module):
             self.gn3 = _gn(channels)
 
     def forward(self, x):
-        y = F.relu(self.gn1(self.conv1(x)))
-        y = self.gn2(self.conv2(y))
-        r = x if self.proj is None else self.gn3(self.proj(x))
-        return F.relu(y + r)
+        y = self.conv2(group_norm_act(self.conv1(x), self.gn1))
+        if self.proj is None:
+            return group_norm_act(y, self.gn2, residual=x)
+        return group_norm_act(y, self.gn2, residual_gn=self.gn3, residual_x=self.proj(x))
 
 
 class PoseNet(nn.Module):
@@ -134,11 +136,11 @@ class PoseNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dt).permute(0, 3, 1, 2)
-        x = F.relu(self.gn0(self.stem(x)))
+        x = group_norm_act(self.stem(x), self.gn0)
         x = F.max_pool2d(_pad_same(x, 3, 2, float("-inf")), 3, 2)
         for blk in self.blocks:
             x = blk(x)
         for d, g in zip(self.deconvs, self.dgns):
-            x = F.relu(g(d(x)))
+            x = group_norm_act(d(x), g)
         # float32 heatmaps for the decode (golfaction_tpu/models/pose.py:110-111).
         return self.final(x).float()

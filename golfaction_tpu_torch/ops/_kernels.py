@@ -30,7 +30,8 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 NATIVE = PKG / "native"
 BUILD = PKG / "build"
-SOURCES = ("preprocess", "gcn_tail", "softdtw", "decode", "softdtw_bwd", "requant")
+SOURCES = ("preprocess", "gcn_tail", "softdtw", "decode", "softdtw_bwd", "requant",
+           "group_norm")
 HOST_SOURCES = ("golfer_host",)
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
