@@ -38,7 +38,7 @@ def control_numbers(conf, traffic, seed, device) -> dict:
     from benchmark.reference.pipeline import Reference
 
     s = bench.Session(conf, traffic, seed, device, program=False)
-    low = Reference(conf["pipeline"], s.state, s.dev, lowp=True)
+    low = Reference(conf, s.state, s.dev, lowp=True)
     rs = s.ref_swing
     with torch.inference_mode():
         kp, aux = low.pose(rs["frames"], rs["boxes"])

@@ -1,5 +1,6 @@
 """The yardstick's arithmetic: the card's peaks, the networks' FLOPs from
-their shapes, and the least bytes and operations of kernels A and B.
+their shapes (the pose net's from its reference module), and the least
+bytes and operations of kernels A and B.
 
 FLOPs count each multiply-add of a matrix product or convolution as 2,
 whatever implements it, and nothing else (FlopCounterMode's convention, to
@@ -10,6 +11,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from benchmark.reference import pose_reference
 
 # NVIDIA H100 SXM data sheet, dense rates (no sparsity), at the full 700 W.
 PEAKS = {"NVIDIA H100 80GB HBM3": {"bf16_flops": 989e12, "fp32_flops": 67e12,
@@ -25,43 +28,6 @@ def peaks(kind: str) -> dict:
 # ---------------------------------------------------------------------------
 # FLOPs
 # ---------------------------------------------------------------------------
-
-def _out(n: int, s: int) -> int:
-    return -(-n // s)
-
-
-def pose_flops(p: dict) -> int:
-    """One crop through the pose net."""
-    h, w = p["input_hw"]
-    total = 0
-
-    def conv(cin, cout, k, s):
-        nonlocal h, w, total
-        h, w = _out(h, s), _out(w, s)
-        total += 2 * cin * cout * k * k * h * w
-
-    conv(3 * p["in_frames"], 64, 7, 2)
-    h, w = _out(h, 2), _out(w, 2)                        # max pool
-    cin = 64
-    for i, (nb, ch) in enumerate(zip(p["stage_blocks"], p["stage_channels"])):
-        for b in range(nb):
-            s = 2 if (b == 0 and i > 0) else 1
-            conv(cin, ch, 3, s)
-            conv(ch, ch, 3, 1)
-            if cin != ch or s != 1:
-                total += 2 * cin * ch * h * w            # 1x1 projection at the output size
-            cin = ch
-    head = list(p["deconv_channels"])
-    stride = 4 * 2 ** (len(p["stage_blocks"]) - 1) // 2 ** len(head)
-    while stride > p["input_hw"][0] // p["heatmap_hw"][0]:
-        head.append(head[-1])
-        stride //= 2
-    for ch in head:                                      # 4x4 stride-2 transposed convs
-        total += 2 * cin * ch * 16 * h * w
-        h, w, cin = 2 * h, 2 * w, ch
-    total += 2 * cin * p["num_joints"] * h * w
-    return total
-
 
 def gcn_flops(g: dict, T: int) -> int:
     """One clip of T frames through the GCN."""
@@ -105,13 +71,16 @@ def error_flops(e: dict, T: int, feature_dim: int) -> int:
 
 def request_flops(stated: dict, lengths, ref_frames: int, feature_dim: int) -> int:
     """The matrix FLOPs that clips of these valid lengths need: the pose net
-    on each valid frame, the GCN, the error head twice (without and with the
-    warped reference) and the encoder on each clip at its own length, and
-    the clip-by-reference distance product."""
+    on each valid frame, one count for every frame from the pose reference
+    module that `stated["pose_reference"]` names (benchmark.reference.
+    pose_reference; Run.stated carries it), the GCN, the error head twice
+    (without and with the warped reference) and the encoder on each clip at
+    its own length, and the clip-by-reference distance product."""
+    per_frame = pose_reference(stated).pose_flops(stated["pose"])
     total = 0
     for T in lengths:
         T = int(T)
-        total += T * pose_flops(stated["pose"]) + gcn_flops(stated["gcn"], T)
+        total += T * per_frame + gcn_flops(stated["gcn"], T)
         total += 2 * error_flops(stated["error"], T, feature_dim)
         total += align_flops(stated["align"], T)
         total += 2 * T * ref_frames * stated["align"]["embed_dim"]

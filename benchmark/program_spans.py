@@ -154,6 +154,17 @@ def snapshot():
     return recorded() if recorded is not None else None
 
 
+def reset() -> None:
+    """Empty the program's recorder, where the program has one."""
+    try:
+        from golfaction_tpu_torch.utils import profiling
+    except ImportError:
+        return
+    r = getattr(profiling, "reset", None)
+    if r is not None:
+        r()
+
+
 def program(run) -> Program | None:
     """The traced window's Program of a run (benchmark.run.Run), built once."""
     if run.trace is None or not run.traced:

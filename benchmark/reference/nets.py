@@ -210,6 +210,43 @@ class PoseNet(nn.Module):
         return self.final(x, num).float()
 
 
+def _out(n: int, s: int) -> int:
+    return -(-n // s)
+
+
+def pose_flops(p: dict) -> int:
+    """The matrix FLOPs of one crop through PoseNet (benchmark.counts's convention)."""
+    h, w = p["input_hw"]
+    total = 0
+
+    def conv(cin, cout, k, s):
+        nonlocal h, w, total
+        h, w = _out(h, s), _out(w, s)
+        total += 2 * cin * cout * k * k * h * w
+
+    conv(3 * p["in_frames"], 64, 7, 2)
+    h, w = _out(h, 2), _out(w, 2)                        # max pool
+    cin = 64
+    for i, (nb, ch) in enumerate(zip(p["stage_blocks"], p["stage_channels"])):
+        for b in range(nb):
+            s = 2 if (b == 0 and i > 0) else 1
+            conv(cin, ch, 3, s)
+            conv(ch, ch, 3, 1)
+            if cin != ch or s != 1:
+                total += 2 * cin * ch * h * w            # 1x1 projection at the output size
+            cin = ch
+    head = list(p["deconv_channels"])
+    stride = 4 * 2 ** (len(p["stage_blocks"]) - 1) // 2 ** len(head)
+    while stride > p["input_hw"][0] // p["heatmap_hw"][0]:
+        head.append(head[-1])
+        stride //= 2
+    for ch in head:                                      # 4x4 stride-2 transposed convs
+        total += 2 * cin * ch * 16 * h * w
+        h, w, cin = 2 * h, 2 * w, ch
+    total += 2 * cin * p["num_joints"] * h * w
+    return total
+
+
 # ---------------------------------------------------------------------------
 # GCN (inference: float32)
 # ---------------------------------------------------------------------------

@@ -16,17 +16,18 @@ from __future__ import annotations
 
 import torch
 
-from benchmark.reference import align, decode, nets
+from benchmark.reference import align, decode, nets, pose_reference
 
 
 class Reference:
-    """`stated`: the configuration file's "pipeline" section; `state`:
+    """`conf`: the configuration file (its "pipeline" section states the
+    sizes, its "pose_reference" names the pose net's module); `state`:
     {model: state_dict}; `lowp`: the control's lower precision (nets.Numerics)."""
 
-    def __init__(self, stated: dict, state: dict, device, lowp: bool = False):
-        self.c = stated
+    def __init__(self, conf: dict, state: dict, device, lowp: bool = False):
+        self.c = stated = conf["pipeline"]
         num = nets.Numerics(lowp)
-        self.pose_net = nets.PoseNet(stated["pose"], num)
+        self.pose_net = pose_reference(conf).PoseNet(stated["pose"], num)
         self.gcn = nets.GCN(stated["gcn"], num)
         self.encoder = nets.AlignEncoder(stated["align"], num)
         self.error = nets.ErrorHead(stated["error"], num)

@@ -39,6 +39,8 @@ CACHE = os.path.join(ROOT, ".bench_cache")
 # The profiler's trace is exported here and read back (then deleted): inside
 # the checkout, whatever TMPDIR holds or lacks.
 TRACE_DIR = os.path.join(CACHE, "trace")
+# Readings of a traced window at most: the profiler now and then loses records.
+TRACE_ATTEMPTS = 3
 FORBIDDEN = ("jax", "jaxlib", "flax", "golfaction_tpu")
 
 
@@ -73,7 +75,9 @@ def metric_units(spec: dict, workload: str, trace: bool) -> dict:
 
 class Run:
     """What one run gives the metric readers: the window's requests, the
-    traced requests and their trace, the stated configuration, the pool."""
+    traced requests and their trace, the stated configuration (the file's
+    "pipeline" section, with the module name of its pose reference under
+    "pose_reference"), the pool."""
 
     def __init__(self):
         self.done, self.traced, self.trace = [], [], None
@@ -144,11 +148,12 @@ class Session:
         import torch
 
         from benchmark import render, system, traffic as gen
+        from benchmark.reference import pose_reference
 
         self.conf, self.traffic, self.seed, self.root = conf, traffic, seed, root
         self.dev = torch.device(device)
         self.run = run = Run()
-        run.stated = conf["pipeline"]
+        run.stated = dict(conf["pipeline"], pose_reference=pose_reference(conf).__name__)
         run.image_hw = tuple(traffic["image_hw"])
         run.ref_frames = traffic["render_frames"]
         self.phases = {}
@@ -203,9 +208,9 @@ class Session:
 
     def measure(self, seconds: float, trace: bool) -> None:
         """The window: --seconds of the closed loop; with `trace`, its first
-        `trace_requests` requests under the profiler."""
+        `trace_requests` requests under the profiler (`traced`), read once the
+        window has closed (`whole_trace`)."""
         import torch
-        from torch.profiler import ProfilerActivity, profile
 
         from benchmark import traffic as gen, window
 
@@ -218,24 +223,39 @@ class Session:
             if trace:
                 if not cuda:
                     raise ValueError("a traced run reads the card's trace: it needs a card")
-                self.spans = Spans(self.dev, on=True)
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    with self.spans.span("bench.window"):
-                        run.traced = window.closed_loop(
-                            self.issue, order, t["in_flight"],
-                            lambda n, now: n >= t["trace_requests"], self.dev, self.spans)
-                    torch.cuda.synchronize(self.dev)
-                edges, self.spans = self.spans.edges, Spans()
+                taken = self.traced(order)
                 run.done = list(run.traced)
             run.done += window.closed_loop(self.issue, order, t["in_flight"],
                                            lambda n, now: now >= end, self.dev)
         run.t1 = end
         self.memory_peak = torch.cuda.max_memory_allocated(self.dev) if cuda else 0
         if trace:
-            from benchmark.trace import Trace
-            os.makedirs(TRACE_DIR, exist_ok=True)
-            run.trace = Trace.from_profiler(
-                prof, os.path.join(TRACE_DIR, f"window_{os.getpid()}.json"), edges)
+            first = run.traced
+            run.trace = whole_trace(taken, lambda: self.traced(order), read_trace)
+            if run.traced is not first:        # traced anew, after the window
+                run.done += run.traced
+
+    def traced(self, order) -> tuple:
+        """`trace_requests` requests of the closed loop under the profiler,
+        padded on both sides (benchmark.trace.pad), into `run.traced`, with
+        the program's recorder emptied first -> (profile, span edges)."""
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        from benchmark import program_spans, trace as tr, window
+
+        t = self.traffic
+        program_spans.reset()
+        self.spans = Spans(self.dev, on=True)
+        with torch.inference_mode(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+            tr.pad(self.dev, tr.LEAD)
+            with self.spans.span("bench.window"):
+                self.run.traced = window.closed_loop(
+                    self.issue, order, t["in_flight"],
+                    lambda n, now: n >= t["trace_requests"], self.dev, self.spans)
+            tr.pad(self.dev, tr.TAIL, tr.TAIL_PAUSE_S)
+        edges, self.spans = self.spans.edges, Spans()
+        return prof, edges
 
     def picked(self) -> list:
         """The window's requests whose outputs are checked, drawn from the seed."""
@@ -259,7 +279,7 @@ class Session:
             d.out = None
         if self.dev.type == "cuda":
             torch.cuda.empty_cache()
-        reference = Reference(self.run.stated, self.state, self.dev)
+        reference = Reference(self.conf, self.state, self.dev)
         self.run.tail_weights = [counts.tail_parameters(b) for b in reference.gcn.blocks]
         by_item: dict = {}
         for item, out in outputs:
@@ -267,6 +287,32 @@ class Session:
         items = [(*self.run.inputs(it), outs) for it, outs in by_item.items()]
         with torch.inference_mode():
             return check.judge(reference, items, ref_swing or self.ref_swing, self.thresholds)
+
+
+def read_trace(taken: tuple):
+    """(profile, span edges) -> benchmark.trace.Trace, by way of a file inside
+    the checkout (deleted once read)."""
+    from benchmark.trace import Trace
+
+    prof, edges = taken
+    os.makedirs(TRACE_DIR, exist_ok=True)
+    return Trace.from_profiler(prof, os.path.join(TRACE_DIR, f"window_{os.getpid()}.json"), edges)
+
+
+def whole_trace(taken, take, read, attempts: int = TRACE_ATTEMPTS):
+    """read(taken); where the profiler lost records inside the window
+    (benchmark.trace.Lost), trace anew with take() and read that, up to
+    `attempts` readings in all, each loss named on stderr."""
+    from benchmark.trace import Lost
+
+    for attempt in range(1, attempts + 1):
+        try:
+            return read(taken)
+        except Lost as e:
+            print(f"[trace] reading {attempt} of {attempts}: {e}", file=sys.stderr)
+            if attempt == attempts:
+                raise
+            taken = take()
 
 
 def execute(conf: dict, traffic: dict, seed: int, seconds: float, trace: bool,

@@ -13,10 +13,11 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import sys
 
 import torch
 
-from benchmark.reference import nets
+from benchmark.reference import nets, pose_reference
 from benchmark.reference import weights as ref_weights
 from benchmark.trace import Spans
 
@@ -35,9 +36,10 @@ def build(conf: dict, seed: int, device, root: str, program: bool = True):
     `Pipeline.from_artifacts` (the system converts the npz files itself; the
     benchmark converts them again for the reference), "seed" draws random
     weights on the device from `seed` and hands them to `Pipeline(cfg,
-    params=...)`.  Raises when the system's config differs from
-    conf["pipeline"], the configuration as stated.  With `program` False
-    only the state dicts are made (the Pipeline is None)."""
+    params=...)`; the pose net's are drawn for the net that conf's pose
+    reference module builds.  Raises when the system's config differs from
+    conf["pipeline"], the configuration as stated (check_config).  With
+    `program` False only the state dicts are made (the Pipeline is None)."""
     from golfaction_tpu_torch.config import apply_overrides, get_config
     from golfaction_tpu_torch.pipeline.orchestrator import Pipeline
 
@@ -50,24 +52,59 @@ def build(conf: dict, seed: int, device, root: str, program: bool = True):
         pipe = Pipeline.from_artifacts(tree, conf["preset"], device=device,
                                        overrides=conf["overrides"])
     elif conf["weights"] == "seed":
-        state = ref_weights.random_state(reference_modules(stated), seed, device)
+        state = ref_weights.random_state(reference_modules(conf), seed, device)
         if not program:
             return None, state
         cfg = apply_overrides(get_config(conf["preset"]), list(conf["overrides"]))
         pipe = Pipeline(cfg, params=state, device=device)
     else:
         raise ValueError(f"weights={conf['weights']!r}: 'artifacts' or 'seed'")
-    ran = _plain(dataclasses.asdict(pipe.cfg))
-    diff = sorted(k for k in set(ran) | set(stated) if ran.get(k) != stated.get(k))
-    if diff:
-        raise ValueError(f"the system runs another configuration than the file states: {diff}: "
-                         f"{ {k: ran.get(k) for k in diff} }")
+    unstated = check_config(pipe.cfg, stated)
+    if unstated:
+        print(f"[config] not stated, at their defaults: "
+              f"{', '.join(f'{k}={v!r}' for k, v in unstated.items())}", file=sys.stderr)
     return pipe, state
 
 
-def reference_modules(stated: dict, lowp: bool = False) -> dict:
-    num = nets.Numerics(lowp)
-    return {"pose": nets.PoseNet(stated["pose"], num), "gcn": nets.GCN(stated["gcn"], num),
+def _differences(ran: dict, stated: dict, default: dict, at: str = "") -> tuple[dict, dict]:
+    """({key: system's value} of keys that differ, {key: value} of keys
+    unstated at their defaults), dotted."""
+    diff, unstated = {}, {}
+    for k in sorted(set(ran) | set(stated)):
+        key = at + k
+        if k not in stated and k in default and ran[k] == default[k]:
+            unstated[key] = ran[k]
+        elif k not in stated or k not in ran:
+            diff[key] = ran.get(k)
+        elif isinstance(ran[k], dict) and isinstance(stated[k], dict):
+            d, u = _differences(ran[k], stated[k], default.get(k, {}), key + ".")
+            diff.update(d)
+            unstated.update(u)
+        elif ran[k] != stated[k]:
+            diff[key] = ran[k]
+    return diff, unstated
+
+
+def check_config(cfg, stated: dict) -> dict:
+    """The system's config dataclass `cfg` against the file's "pipeline"
+    section `stated`, section by section: a key the file states matches the
+    system's value exactly; a key the system has and the file does not state
+    is accepted only at its dataclass default (`type(cfg)()`, nested).  Any
+    other difference raises.  -> {dotted key: value} of the keys accepted
+    unstated."""
+    ran, default = _plain(dataclasses.asdict(cfg)), _plain(dataclasses.asdict(type(cfg)()))
+    diff, unstated = _differences(ran, stated, default)
+    if diff:
+        raise ValueError(f"the system runs another configuration than the file states: {diff}")
+    return unstated
+
+
+def reference_modules(conf: dict, lowp: bool = False) -> dict:
+    """{model: reference module} of the configuration file `conf`, the pose
+    net from its pose reference module."""
+    stated, num = conf["pipeline"], nets.Numerics(lowp)
+    return {"pose": pose_reference(conf).PoseNet(stated["pose"], num),
+            "gcn": nets.GCN(stated["gcn"], num),
             "align": nets.AlignEncoder(stated["align"], num),
             "error": nets.ErrorHead(stated["error"], num)}
 

@@ -7,14 +7,18 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from benchmark import counts
-from benchmark.reference import nets
+from benchmark.reference import nets, pose_reference
 from benchmark.tests.conftest import load
 
 
-def _stated(tiny: bool):
+def _conf(tiny: bool):
     from benchmark.tests.conftest import tiny_pipeline
     conf = load("configs", "shipped")
-    return (tiny_pipeline(conf) if tiny else conf)["pipeline"]
+    return tiny_pipeline(conf) if tiny else conf
+
+
+def _stated(tiny: bool):
+    return _conf(tiny)["pipeline"]
 
 
 def _flops(fn) -> int:
@@ -25,15 +29,16 @@ def _flops(fn) -> int:
 
 @pytest.mark.parametrize("tiny", [True, False])
 def test_pose_flops_match_flop_counter(tiny):
+    pose = pose_reference(_conf(tiny))
     p = dict(_stated(tiny)["pose"], dtype="float32")
-    net = nets.PoseNet(p)
+    net = pose.PoseNet(p, nets.Numerics())
     h, w = p["input_hw"]
-    assert counts.pose_flops(p) == _flops(lambda: net(torch.zeros(1, h, w, 3)))
+    assert pose.pose_flops(p) == _flops(lambda: net(torch.zeros(1, h, w, 3)))
 
 
 def test_pose_flops_at_the_shipped_widths():
     # 4.37 GFLOP a crop at 256 x 192 (the ResNet-18-like trunk, three deconvs).
-    assert counts.pose_flops(_stated(False)["pose"]) == 4_371_775_488
+    assert pose_reference(_conf(False)).pose_flops(_stated(False)["pose"]) == 4_371_775_488
 
 
 @pytest.mark.parametrize("T", [5, 16])

@@ -31,7 +31,7 @@ def test_reference_stages_agree_with_the_port(tracked):
         conf["overrides"] += ["pose.decode_tracking=4", "pose.track_suppress_radius=2.0",
                               "pose.sigma=1.25", "error.mode_features=True"]
     pipe, state = system.build(conf, 2 ** 31 + 3, "cpu", ".")
-    ref = Reference(conf["pipeline"], state, "cpu")
+    ref = Reference(conf, state, "cpu")
     (frames, boxes, valid), (base, bboxes) = _inputs()
     with torch.inference_mode():
         rv = torch.ones(1, base.shape[0], dtype=torch.bool)
@@ -83,7 +83,7 @@ def test_the_configuration_files_state_what_the_port_runs():
 
 def test_random_weights_are_the_seeds_and_fill_every_parameter():
     conf = tiny_pipeline(load("configs", "full_pipeline"))
-    mods = system.reference_modules(conf["pipeline"])
+    mods = system.reference_modules(conf)
     a = weights.random_state(mods, 2 ** 40 + 1, "cpu")
     b = weights.random_state(mods, 2 ** 40 + 1, "cpu")
     c = weights.random_state(mods, 2 ** 40 + 2, "cpu")

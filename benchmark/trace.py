@@ -11,6 +11,15 @@ by its correlation id to the host launch that issued it, and the launch to
 the innermost span open at that moment.  The device's busy time is the
 union of the activities' intervals inside the window; an idle gap is put
 down to the innermost span open at its midpoint.
+
+CUPTI loses records at the edges of a profile: the device records of the
+last launches before it stops, when it stops at once (up to 2,495 launches
+on an H100), and, in a process that traced before, of the first launches
+after it starts (up to 330).  `pad` puts a few thousand launches of its own
+before the window and after it, and pauses before the profile stops, so
+that what is lost lies outside the window; `Trace` then holds every kernel
+launch inside the window to its device record, and raises `Lost` where one
+has none, so that a window the profiler lost part of is never read.
 """
 
 from __future__ import annotations
@@ -20,10 +29,31 @@ import collections
 import contextlib
 import json
 import os
+import time
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 MARKER = "FillFunctor<double>"
+KERNEL_LAUNCH = "LaunchKernel"          # cudaLaunchKernel[ExC], cuLaunchKernel[Ex]
+LEAD, TAIL, TAIL_PAUSE_S = 2000, 3000, 0.5
+
+
+class Lost(ValueError):
+    """The profiler lost device records inside the window."""
+
+
+def pad(device, launches: int, pause_s: float = 0.0) -> None:
+    """Outside the window, under the profile: wait for the card, launch
+    `launches` one-value int32 fills (not markers), wait for them, pause."""
+    import torch
+
+    torch.cuda.synchronize(device)
+    cell = torch.zeros(1, dtype=torch.int32, device=device)
+    for i in range(launches):
+        cell.fill_(i)
+    torch.cuda.synchronize(device)
+    if pause_s:
+        time.sleep(pause_s)
 
 
 class Spans:
@@ -72,11 +102,14 @@ def innermost(spans: list, starts: list, t: float):
 
 
 class Trace:
-    """The window's activities: `ops` [(name, start_us, dur_us, span name)],
-    `spans` [Span] (host, microseconds), `window` (start_us, end_us)."""
+    """The window's activities: `ops` [(name, start_us, dur_us, span name)]
+    (those launched inside the window, and those whose launch the trace
+    lacks), `spans` [Span] (host, microseconds), `window` (start_us, end_us).
+    Raises `Lost` where markers are missing or a kernel launch inside the
+    window has no device record."""
 
     def __init__(self, events: list, edges: list, window: str = "bench.window"):
-        launches, device = {}, []
+        launches, kernel_launches, device = {}, set(), []
         for e in events:
             if e.get("ph") != "X":
                 continue
@@ -85,6 +118,8 @@ class Trace:
                 corr = (e.get("args") or {}).get("correlation")
                 if corr is not None:
                     launches[corr] = float(e["ts"])
+                    if KERNEL_LAUNCH in str(e.get("name", "")):
+                        kernel_launches.add(corr)
             elif cat in DEVICE_CATS:
                 device.append(e)
         if not launches:
@@ -98,7 +133,7 @@ class Trace:
             else:
                 ops.append((e, t))
         if len(marks) != len(edges) or any(t is None for _, t in marks):
-            raise ValueError(f"{len(marks)} span markers in the trace, {len(edges)} marked")
+            raise Lost(f"{len(marks)} span markers in the trace, {len(edges)} marked")
         marks.sort()                       # correlation ids follow the launch order
         spans, stack = [], []
         for (name, edge), (_, t) in zip(edges, marks):
@@ -113,10 +148,16 @@ class Trace:
         windows = [s for s in spans if s.name == window]
         if len(windows) != 1:
             raise ValueError(f"the trace holds {len(windows)} {window} spans, not 1")
-        self.window = (windows[0].start, windows[0].end)
+        self.window = w0, w1 = (windows[0].start, windows[0].end)
+        recorded = {(e.get("args") or {}).get("correlation") for e in device}
+        lost = [c for c in kernel_launches if w0 < launches[c] < w1 and c not in recorded]
+        if lost:
+            raise Lost(f"{len(lost)} kernel launches inside the window have no device record")
         self.spans, self._starts = spans, [s.start for s in spans]
         self.ops = []
         for e, t in ops:
+            if t is not None and not w0 <= t <= w1:
+                continue                   # the padding
             span = innermost(spans, self._starts, t) if t is not None else None
             self.ops.append((str(e.get("name", "")), float(e["ts"]), float(e["dur"]),
                              span.name if span is not None else None))
