@@ -51,10 +51,21 @@ SWING_ERRORS = (
 NUM_ERRORS = len(SWING_ERRORS)
 
 
+# The pose net's backbones: the SimpleBaseline ResNet (models/pose.py) or
+# ViTPose's plain vision transformer (models/vit.py).
+POSE_BACKBONES = ("resnet", "vit")
+
+
 @dataclasses.dataclass(frozen=True)
 class PoseConfig:
-    """Top-down heatmap pose model."""
+    """Top-down heatmap pose model.
 
+    `backbone` "resnet" reads `stage_blocks` and `stage_channels`; "vit"
+    reads the `vit_*` widths (ViTPose, Xu et al., NeurIPS 2022; the defaults
+    are ViT-L/16's), which the ResNet ignores.  Both share the deconvolution
+    head.  The JAX package has the ResNet alone."""
+
+    backbone: str = "resnet"
     input_hw: tuple[int, int] = (256, 192)      # crop H, W fed to the backbone
     heatmap_hw: tuple[int, int] = (64, 48)      # output heatmap H, W (stride 4)
     num_joints: int = graph.NUM_JOINTS
@@ -72,6 +83,26 @@ class PoseConfig:
     track_lambda: float = 0.1
     # NMS suppression radius (heatmap px) of the tracked-decode modes.
     track_suppress_radius: float = 3.0
+    # The ViT: vit_depth pre-LN blocks of vit_width with vit_heads heads and
+    # an MLP of vit_mlp_width, after models/vit.py's 16 x 16 patch embedding.
+    vit_width: int = 1024
+    vit_depth: int = 24
+    vit_heads: int = 16
+    vit_mlp_width: int = 4096
+
+    def __post_init__(self):
+        if self.backbone not in POSE_BACKBONES:
+            raise ValueError(f"pose.backbone={self.backbone!r}: one of "
+                             f"{', '.join(map(repr, POSE_BACKBONES))}")
+        if self.backbone == "vit" and self.vit_width % self.vit_heads:
+            raise ValueError(f"pose.vit_width={self.vit_width} does not divide into "
+                             f"pose.vit_heads={self.vit_heads} heads")
+
+    def require_resnet(self, what: str) -> None:
+        """Raise where `what` takes the ResNet pose net alone."""
+        if self.backbone != "resnet":
+            raise ValueError(f"{what} takes the ResNet pose net (pose.backbone='resnet'), "
+                             f"not pose.backbone={self.backbone!r}")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,7 +1,9 @@
 """Top-down heatmap pose-estimation model (SimpleBaseline family).
 
 ResNet-style backbone with GroupNorm plus a transposed-conv head, one
-heatmap per COCO-17 joint.  Input crops are NHWC like the JAX package's;
+heatmap per COCO-17 joint; `pose_net(cfg)` builds it, or ViTPose's
+transformer backbone (models/vit.py) with the same head for
+`backbone="vit"`.  Input crops are NHWC like the JAX package's;
 the convolutions run NCHW.  Padding reproduces flax's "SAME" rule
 (pad_total = max((ceil(n/s) - 1) * s + k - n, 0), low side gets the
 floor half), and GroupNorm uses flax's epsilon 1e-6.
@@ -98,26 +100,21 @@ class ResBlock(nn.Module):
         return group_norm_act(y, self.gn2, residual_gn=self.gn3, residual_x=self.proj(x))
 
 
-class PoseNet(nn.Module):
-    """crops [B, H, W, 3*in_frames] (normalized, NHWC) -> heatmaps
-    [B, K, Hh, Wh] float32."""
+class HeatmapHead(nn.Module):
+    """The SimpleBaseline head that both backbones end in: the deconvolutions
+    of `deconv_channels` (4x4, stride 2, each with its GroupNorm and ReLU),
+    then extra ones until heatmap resolution, and the 1x1 projection, under
+    the names `deconvs.i`, `dgns.i` and `final`."""
 
-    def __init__(self, cfg: PoseConfig = PoseConfig()):
-        super().__init__()
-        self.cfg = cfg
-        self.dt = compute_dtype(cfg.dtype)
-        self.stem = SameConv2d(3 * cfg.in_frames, 64, 7, 2)
-        self.gn0 = _gn(64)
-        blocks, cin = [], 64
-        for i, (nb, ch) in enumerate(zip(cfg.stage_blocks, cfg.stage_channels)):
-            for b in range(nb):
-                blocks.append(ResBlock(cin, ch, 2 if (b == 0 and i > 0) else 1))
-                cin = ch
-        self.blocks = nn.ModuleList(blocks)
-        # SimpleBaseline head, then extra deconvs until heatmap resolution.
+    def _build_head(self, cfg: PoseConfig, cin: int, stride: int) -> None:
+        """The head for backbone features of `cin` channels at `stride`."""
         head = list(cfg.deconv_channels)
-        stride = 4 * 2 ** (len(cfg.stage_blocks) - 1) // (2 ** len(cfg.deconv_channels))
         target = cfg.input_hw[0] // cfg.heatmap_hw[0]
+        if stride // 2 ** len(head) < target:
+            raise ValueError(f"pose.deconv_channels={cfg.deconv_channels}: {len(head)} "
+                             f"deconvolutions from stride {stride} overshoot the heatmaps' "
+                             f"stride {target}")
+        stride //= 2 ** len(head)
         n_extra = 0
         while stride > target:
             n_extra += 1
@@ -134,13 +131,45 @@ class PoseNet(nn.Module):
         self.dgns = nn.ModuleList(gns)
         self.final = Project(cin, cfg.num_joints)
 
+    def _heatmaps(self, x: torch.Tensor) -> torch.Tensor:
+        """Backbone features [B, C, h, w] -> float32 heatmaps."""
+        for d, g in zip(self.deconvs, self.dgns):
+            x = group_norm_act(d(x), g)
+        # float32 heatmaps for the decode (golfaction_tpu/models/pose.py:110-111).
+        return self.final(x).float()
+
+
+class PoseNet(HeatmapHead):
+    """The ResNet pose net: crops [B, H, W, 3*in_frames] (normalized, NHWC)
+    -> heatmaps [B, K, Hh, Wh] float32."""
+
+    def __init__(self, cfg: PoseConfig = PoseConfig()):
+        super().__init__()
+        cfg.require_resnet("PoseNet (models.pose.pose_net builds either backbone)")
+        self.cfg = cfg
+        self.dt = compute_dtype(cfg.dtype)
+        self.stem = SameConv2d(3 * cfg.in_frames, 64, 7, 2)
+        self.gn0 = _gn(64)
+        blocks, cin = [], 64
+        for i, (nb, ch) in enumerate(zip(cfg.stage_blocks, cfg.stage_channels)):
+            for b in range(nb):
+                blocks.append(ResBlock(cin, ch, 2 if (b == 0 and i > 0) else 1))
+                cin = ch
+        self.blocks = nn.ModuleList(blocks)
+        self._build_head(cfg, cin, 4 * 2 ** (len(cfg.stage_blocks) - 1))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dt).permute(0, 3, 1, 2)
         x = group_norm_act(self.stem(x), self.gn0)
         x = F.max_pool2d(_pad_same(x, 3, 2, float("-inf")), 3, 2)
         for blk in self.blocks:
             x = blk(x)
-        for d, g in zip(self.deconvs, self.dgns):
-            x = group_norm_act(d(x), g)
-        # float32 heatmaps for the decode (golfaction_tpu/models/pose.py:110-111).
-        return self.final(x).float()
+        return self._heatmaps(x)
+
+
+def pose_net(cfg: PoseConfig) -> nn.Module:
+    """The pose net that `cfg.backbone` names."""
+    if cfg.backbone == "vit":
+        from golfaction_tpu_torch.models.vit import ViTPose   # vit imports this module
+        return ViTPose(cfg)
+    return PoseNet(cfg)

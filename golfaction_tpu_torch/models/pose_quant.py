@@ -57,7 +57,8 @@ def _groups(ch: int) -> int:
 
 def conv_names(model: PoseNet) -> list[str]:
     """Names of every convolution of `model`, in forward order, the final
-    1x1 projection last."""
+    1x1 projection last.  The int8 path quantizes the ResNet alone."""
+    model.cfg.require_resnet("the int8 pose path")
     names = ["stem"]
     for i, blk in enumerate(model.blocks):
         names += [f"blocks.{i}.conv1", f"blocks.{i}.conv2"]

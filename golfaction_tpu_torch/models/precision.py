@@ -7,7 +7,12 @@ added after the product's rounding), and each normalization takes its
 statistics and arithmetic in float32 and rounds its result to bfloat16
 (on the card, with the ReLU and residual add after it, in one launch of
 kernel G: `group_norm_act`);
-a sigmoid is JAX's, each of its steps rounded to bfloat16.
+a sigmoid is JAX's, each of its steps rounded to bfloat16; a GELU computes
+in float32 and rounds once (torch's own `F.gelu` on bfloat16, on the CPU and
+the card alike); an attention (the ViT's) takes its scores and softmax in
+float32 and rounds its probabilities to the activations' dtype before their
+float32-summed product with v, as the card's fused scaled-dot-product
+kernels do in bfloat16 (`attention`), and rounds its output once.
 The activations' own dtype carries the choice from layer to layer, so a
 float32 input runs every layer exactly as the float32 modules always did.
 """
@@ -16,6 +21,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from golfaction_tpu_torch.ops import group_norm as kernel_g
 from golfaction_tpu_torch.utils import profiling
@@ -47,6 +53,50 @@ def sigmoid(x: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.float32:
         return torch.sigmoid(x)
     return 1.0 / (1.0 + torch.exp(-x))
+
+
+def layer_norm(x: torch.Tensor, ln: torch.nn.LayerNorm) -> torch.Tensor:
+    """`ln` over x's last axis at x's dtype: statistics and arithmetic in
+    float32, the result rounded once to x.dtype."""
+    y = F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, ln.eps)
+    return y.to(x.dtype)
+
+
+# The fused attention kernels the card may take; never the math backend.
+FUSED_ATTENTION = [SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                   SDPBackend.EFFICIENT_ATTENTION]
+
+
+def attn_route(device_type: str, dtype: torch.dtype, grad: bool) -> str:
+    """Which code computes an attention of tensors on `device_type` of
+    `dtype`: "fused" (scaled_dot_product_attention restricted to
+    FUSED_ATTENTION, so a missing kernel raises) for bfloat16 on the card
+    with no gradient to record; "plain" (softmax(q k^T * scale) v in torch
+    ops) otherwise."""
+    if device_type == "cuda" and dtype == torch.bfloat16 and not grad:
+        return "fused"
+    return "plain"
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """softmax(q k^T / sqrt(d)) v over q, k, v [B, heads, N, d] at their
+    dtype, by the fused kernels' rule: the scores in float32, p =
+    exp(s - rowmax) in float32 rounded to the dtype, p v summed in float32
+    and divided by the float32 sum of p, the output rounded once (at
+    float32, a float32 product's own precision).  The fused kernels take the
+    row's max over blocks of keys and sum in their own order, so they agree
+    with the plain ops to a rounding, not to the bit.  Counted in
+    `attn_fused` or, on a card tensor, `attn_plain` (`attn_route`)."""
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    if attn_route(q.device.type, q.dtype, grad) == "fused":
+        profiling.count("attn_fused")
+        with sdpa_kernel(FUSED_ATTENTION):
+            return F.scaled_dot_product_attention(q, k, v)
+    if q.device.type == "cuda":
+        profiling.count("attn_plain")
+    s = (q.float() @ k.float().transpose(-2, -1)) * q.shape[-1] ** -0.5
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    return ((p.to(q.dtype).float() @ v.float()) / p.sum(-1, keepdim=True)).to(q.dtype)
 
 
 def gn_route(device_type: str, dtype: torch.dtype, grad: bool, channels_last: bool) -> str:

@@ -4,7 +4,7 @@ alignment against a reference swing, and swing-fault flags out.
 Stages per clip (frames padded to a length bucket, `valid` marks real ones):
 [coarse pose pass on every k-th frame from full-frame boxes -> smoothed
 keypoint-seeded boxes, when box_refine_stride > 0] -> crop/resize/normalize
-(kernel A, once per neighbour offset when pose.in_frames > 1) -> PoseNet ->
+(kernel A, once per neighbour offset when pose.in_frames > 1) -> pose net ->
 heatmap decode (single peak through kernel D, or the tracked top-k decode)
 [-> keypoint refiner, when the params carry one] -> skeleton normalize -> GCN
 (block tails through kernel B) -> error head.
@@ -34,7 +34,7 @@ from golfaction_tpu_torch.config import MeshConfig, PipelineConfig, apply_overri
 from golfaction_tpu_torch.models.align import AlignEncoder
 from golfaction_tpu_torch.models.error import ErrorClassifier
 from golfaction_tpu_torch.models.gcn import ActionSegmentationGCN, normalize_skeleton
-from golfaction_tpu_torch.models.pose import PoseNet
+from golfaction_tpu_torch.models.pose import pose_net
 from golfaction_tpu_torch.models.refine import KeypointRefiner
 from golfaction_tpu_torch.ops import affine, heatmap, preprocess, softdtw
 from golfaction_tpu_torch.parallel import mesh as mesh_mod
@@ -61,7 +61,7 @@ def assemble_clip_batch(clips: Sequence[np.ndarray], n: int) -> np.ndarray:
 
 
 def _new_models(c: PipelineConfig, refiner: bool) -> dict:
-    models = {"pose": PoseNet(c.pose), "gcn": ActionSegmentationGCN(c.gcn),
+    models = {"pose": pose_net(c.pose), "gcn": ActionSegmentationGCN(c.gcn),
               "align": AlignEncoder(c.align), "error": ErrorClassifier(c.error)}
     if refiner:
         models["refine"] = KeypointRefiner(c.refine)
@@ -150,8 +150,9 @@ class Pipeline:
         """The shipped model: the preset with `overrides` (config.apply_overrides
         syntax) adapted to the tree (pose_meta.json, the checkpoints'
         shapes), weights from `<root>/params/*.npz`, per-fault thresholds
-        from error_thresholds.json."""
+        from error_thresholds.json.  The trees hold the ResNet pose net alone."""
         cfg = apply_overrides(get_config(preset), list(overrides))
+        cfg.pose.require_resnet("Pipeline.from_artifacts (the npz trees' pose net)")
         cfg = checkpoint.config_for_artifacts(cfg, root)
         params = weights.from_flax(checkpoint.load_params(root))
         return cls(cfg, params, device=device,

@@ -202,8 +202,10 @@ def device_trace(log_dir: Optional[str] = None):
 
     Around `Pipeline.analyze_batch` (or any call into the per-chunk
     program) the trace shows the program's spans (`pose`, `pose.net`,
-    `align.path`, `sync`, ...) as host ranges over the kernels they
-    launched; `recorded()` holds the same spans and the counters."""
+    `pose.vit.blocks` with the ViT backbone, `align.path`, `sync`, ...) as
+    host ranges over the kernels they launched; `recorded()` holds the same
+    spans and the counters (`host_syncs`, `gn_kernel`, `gn_plain`,
+    `attn_fused`, `attn_plain`)."""
     if log_dir is None:
         yield
         return

@@ -90,7 +90,11 @@ def _seq(p: dict, prefix: str) -> list[str]:
 
 
 def pose_state_dict(tree: dict) -> dict:
+    """The JAX package's pose tree (its ResNet) -> the port's PoseNet state dict."""
     p = _root(tree)
+    if "Conv_0" not in p:
+        raise ValueError(f"pose_state_dict: not a flax ResNet pose tree (pose.backbone='resnet'; "
+                         f"the JAX package has no other): top-level keys {sorted(p)[:6]}")
     sd: dict = {}
     _conv(sd, "stem", p["Conv_0"])
     _norm(sd, "gn0", p["GroupNorm_0"])
@@ -245,6 +249,11 @@ def _sub(sd, prefix: str) -> dict:
 
 
 def pose_tree(sd: dict) -> dict:
+    """The port's ResNet pose state dict -> the JAX package's tree."""
+    if "stem.weight" not in sd:
+        kind = "a ViT (pose.backbone='vit')" if "patch_embed.proj.weight" in sd else "not a ResNet"
+        raise ValueError(f"pose_tree: the state dict is {kind}; the JAX package's pose net, and "
+                         f"so its tree, is the ResNet (pose.backbone='resnet')")
     p = {"Conv_0": _conv_out(sd, "stem"), "GroupNorm_0": _norm_out(sd, "gn0")}
     for i in range(_count(sd, "blocks")):
         b = {"Conv_0": _conv_out(sd, f"blocks.{i}.conv1"),

@@ -21,12 +21,20 @@ def _drop(d: dict, names) -> dict:
     return {k: v for k, v in d.items() if k not in names}
 
 
+# Port fields the JAX package lacks (the pose net's backbone selector and the
+# ViT's widths): a JAX config carries over with them at the port's defaults.
+_PORT_ONLY = {"pose": ("backbone", "vit_width", "vit_depth", "vit_heads", "vit_mlp_width")}
+
+
 def jax_config_dict(jax_cfg) -> dict:
-    """dataclasses.asdict of a JAX PipelineConfig without its `*_impl` fields:
-    what the port's asdict of the same config must equal."""
+    """dataclasses.asdict of a JAX PipelineConfig without its `*_impl` fields,
+    with the port-only fields at the port's defaults: what the port's asdict
+    of the same config must equal."""
     d = _drop(dataclasses.asdict(jax_cfg), _JAX_ONLY[None])
     for k in ("pose", "gcn"):
         d[k] = _drop(d[k], _JAX_ONLY[k])
+    pose = dataclasses.asdict(tcfg.PoseConfig())
+    d["pose"].update({k: pose[k] for k in _PORT_ONLY["pose"]})
     return d
 
 
