@@ -179,7 +179,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from golfaction_tpu_torch.bench import cuda_ms, graph_ms, kernel_counters
+from golfaction_tpu_torch.bench import cuda_ms, graph_ms
+from golfaction_tpu_torch.ops import kernel_counters
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores

@@ -66,6 +66,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from golfaction_tpu_torch.ops import kernel_counters
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BASELINE_FPS = 300.0                   # BASELINE.json's north-star frames/s a chip
 # Dense bfloat16 tensor-core peak (TFLOP/s), NVIDIA's data sheet, SXM part.
@@ -169,18 +171,6 @@ def graph_ms(fn, calls: int = 20, reps: int = 10) -> float:
         e.synchronize()
         times.append(s.elapsed_time(e) / calls)
     return float(np.median(times))
-
-
-def kernel_counters() -> dict:
-    """Each kernel's wrapper, which counts its launches."""
-    from golfaction_tpu_torch.ops import (gcn_tail, group_norm, heatmap, preprocess, requant,
-                                          softdtw)
-
-    return {"preprocess": preprocess.crop_resize_normalize, "gcn_tail": gcn_tail.gcn_block_tail,
-            "softdtw": softdtw.wavefront, "decode": heatmap.decode_heatmaps,
-            "softdtw_bwd": softdtw.softdtw_backward, "requant": requant.requant_epilogue,
-            "preprocess_bf16": preprocess.crop_resize_normalize_bf16,
-            "group_norm": group_norm.group_norm_act}
 
 
 def e2e_lengths(n: int) -> list:

@@ -35,6 +35,7 @@ from golfaction_tpu_torch.models.align import AlignEncoder
 from golfaction_tpu_torch.models.error import ErrorClassifier
 from golfaction_tpu_torch.models.gcn import ActionSegmentationGCN, normalize_skeleton
 from golfaction_tpu_torch.models.pose import pose_net
+from golfaction_tpu_torch.models.pose_graph import PoseGraphs
 from golfaction_tpu_torch.models.refine import KeypointRefiner
 from golfaction_tpu_torch.ops import affine, heatmap, preprocess, softdtw
 from golfaction_tpu_torch.parallel import mesh as mesh_mod
@@ -136,6 +137,7 @@ class Pipeline:
             if mesh is not None:
                 mesh_mod.replicate(m, mesh)
         self.gcn_model.prepare()
+        self._pose_graphs = PoseGraphs()
         self.last_batch_stats: Optional[dict] = None
         self.last_copy_ms: list = []
         self.error_thresholds = None
@@ -211,9 +213,15 @@ class Pipeline:
         mb = max(1, min(c.frame_batch, T))
         # The final crops are float32 whatever preprocess_dtype says, as the
         # JAX probe front's are; the coarse pass above honours it.
-        hms = [self.pose_model(self._context_crops(frames, boxes, i, mb, T, torch.float32))
+        hms = [self._pose_net(self._context_crops(frames, boxes, i, mb, T, torch.float32))
                for i in range(0, T, mb)]
         return torch.cat(hms), boxes
+
+    def _pose_net(self, crops: torch.Tensor) -> torch.Tensor:
+        """The pose net on one micro-batch of crops: a replay of its captured
+        CUDA graph where `pose_graph.graph_route` allows (the ResNet, a full
+        micro-batch on the card, no gradient, no hook), else the module."""
+        return self._pose_graphs(self.pose_model, crops, self.cfg.frame_batch)
 
     def _context_crops(self, flat_f: torch.Tensor, flat_b: torch.Tensor, s: int, mb: int,
                        T: int, dtype: torch.dtype) -> torch.Tensor:
@@ -267,7 +275,7 @@ class Pipeline:
             with span("pose.crops"):
                 crops = self._context_crops(flat_f, flat_b, s, mb, T, crop_dtype)
             with span("pose.net"):
-                hm = self.pose_model(crops)                        # [mb, V, Hh, Wh]
+                hm = self._pose_net(crops)                         # [mb, V, Hh, Wh]
             with span("pose.decode"):
                 if track_k:
                     decs.append(heatmap.topk_modes(

@@ -4,8 +4,10 @@ JAX package's `golfaction_tpu/utils/profiling.py`.
 `span(name)` and `count(name, n)` are the program's own instrumentation,
 kept in memory (`recorded()`, `reset()`) while a `torch.profiler` profile is
 active in the calling thread, and nothing otherwise: an edge then costs one
-check of the profiler's state.  A recorded span is also a
-`record_function` range, so a trace of host activity shows it.
+check of the profiler's state.  `tally()` collects a block's counts instead,
+so that a replayed CUDA graph can count again what its capture counted.  A
+recorded span is also a `record_function` range, so a trace of host
+activity shows it.
 `StageTimer` accumulates wall time per named stage, each stage a span and,
 when given a CUDA fence, closed by a `torch.cuda.synchronize` of that
 device, so that a stage's time includes the device work it enqueued.
@@ -97,11 +99,27 @@ class Recorder:
         return self._open(name) if _profiling() else _OFF
 
     def count(self, name: str, n: int = 1) -> None:
-        """Count `n` of `name` here, while the profiler is on."""
-        if _profiling():
+        """Count `n` of `name` here, while the profiler is on; inside a
+        `tally` of this thread, into the tally instead."""
+        tally = getattr(self._local, "tally", None)
+        if tally is not None:
+            tally[name] = tally.get(name, 0) + n
+        elif _profiling():
             stack = self._stack()
             self._keep(self._counts, CountRecord(name, n, stack[-1] if stack else None,
                                                  stack[0] if stack else None))
+
+    @contextlib.contextmanager
+    def tally(self):
+        """A block whose counts in this thread go to the dict it yields
+        ({name: n}), whatever the profiler's state, and are not recorded:
+        what a call counted, for a replay of that call to count again."""
+        outer = getattr(self._local, "tally", None)
+        self._local.tally = counts = {}
+        try:
+            yield counts
+        finally:
+            self._local.tally = outer
 
     def _stack(self) -> list:
         stack = getattr(self._local, "stack", None)
@@ -136,6 +154,7 @@ class Recorder:
 RECORDER = Recorder()
 span = RECORDER.span
 count = RECORDER.count
+tally = RECORDER.tally
 recorded = RECORDER.recorded
 reset = RECORDER.reset
 
@@ -205,7 +224,7 @@ def device_trace(log_dir: Optional[str] = None):
     `pose.vit.blocks` with the ViT backbone, `align.path`, `sync`, ...) as
     host ranges over the kernels they launched; `recorded()` holds the same
     spans and the counters (`host_syncs`, `gn_kernel`, `gn_plain`,
-    `attn_fused`, `attn_plain`)."""
+    `attn_fused`, `attn_plain`, `pose_graph`, `pose_eager`)."""
     if log_dir is None:
         yield
         return
