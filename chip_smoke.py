@@ -162,8 +162,9 @@ sites of a shipped pose-net call, times, layouts, the net with and without G).
 
 A kernel's `launches` counts calls of its wrapper, summed over the driven
 paths (4, 6-9, 11-18; the bench counts its own, in its process, from its
-headline to config 1; the parallel phase adds what its ranks counted); each path zeroes the counts just before it runs and
-reads them just after.  The GCN tail's call is four __global__ launches
+headline to config 1; the parallel phase adds what its ranks counted): the
+difference of the program's running totals (`profiling.totals()`, the
+`launch.<key>` counts) from just before a path runs to just after.  The GCN tail's call is four __global__ launches
 (rows, taps, gates, apply); the others' is one.  The `launches` line also
 carries `phase_seconds`, the host seconds each phase took.
 """
@@ -180,7 +181,8 @@ import torch
 import torch.nn.functional as F
 
 from golfaction_tpu_torch.bench import cuda_ms, graph_ms
-from golfaction_tpu_torch.ops import kernel_counters
+from golfaction_tpu_torch.ops import KERNELS, launches_since
+from golfaction_tpu_torch.utils import profiling
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
@@ -524,7 +526,7 @@ def replay_on_cpu(tag: str, pipe, cpu, small, small_boxes, ref_small) -> None:
           f"{tag}: card and CPU disagree after the pose network")
 
 
-def single_peak_phase(clips, boxes, counters) -> dict:
+def single_peak_phase(clips, boxes) -> dict:
     """The `full_pipeline` preset as it is: decode_tracking 0, so the pose
     pass decodes through kernel D.  Random weights from seed 0."""
     from golfaction_tpu_torch.config import get_config
@@ -535,8 +537,7 @@ def single_peak_phase(clips, boxes, counters) -> dict:
     cfg = float32(get_config("full_pipeline"))      # single_peak_cpu's limits are float32's
     check(cfg.pose.decode_tracking == 0 and cfg.pose.udp, "preset is not single-peak UDP")
     pipe = Pipeline(cfg, device="cuda", seed=0)
-    for fn in counters.values():
-        fn.launches = 0
+    since = profiling.totals()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res_ref = pipe.analyze(clips[1], boxes=boxes[1])
@@ -545,7 +546,7 @@ def single_peak_phase(clips, boxes, counters) -> dict:
     res_batch = pipe.analyze_batch(clips[2:], boxes=boxes[2:], reference=reference)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in counters.items()}
+    launches = launches_since(since)
     check_results([res_ref, res_cmp, *res_batch], reference)
     for k in ("preprocess", "gcn_tail", "softdtw", "decode"):
         check(launches[k] > 0, f"kernel {k} was not launched on the single-peak path")
@@ -589,7 +590,7 @@ def step_on_card_vs_cpu(model_cpu, loss_fn, batch_cpu, what: str) -> dict:
     return out
 
 
-def train_phase(counters) -> dict:
+def train_phase() -> dict:
     """The four trainers at their default widths, a few steps each, then the
     stage-wise pose evaluation."""
     import dataclasses
@@ -605,12 +606,11 @@ def train_phase(counters) -> dict:
     tc = cfg_mod.TrainConfig(batch_size=32, warmup_steps=2, total_steps=steps, seed=0)
     pose_cfg = cfg_mod.PoseConfig()
     image_hw = (256, 320)
-    for fn in counters.values():
-        fn.launches = 0
+    since = profiling.totals()
     out = {}
 
     def run(name, fn):
-        before = {k: f.launches for k, f in counters.items()}
+        before = profiling.totals()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, hist = fn()
@@ -619,7 +619,7 @@ def train_phase(counters) -> dict:
         for rec in hist:
             check(all(np.isfinite(v) for v in rec.values()), f"{name}: non-finite {rec}")
         check(len(hist) == steps and state.step == steps, f"{name}: {len(hist)} records")
-        out[name] = {k: f.launches - before[k] for k, f in counters.items()}
+        out[name] = launches_since(before)
         # The call's seconds hold the set-up (model, pool rendering) and the
         # first step's warm-up; the later steps' pace is read off the history.
         later = (hist[-1]["seconds"] - hist[0]["seconds"]) / (steps - 1)
@@ -649,17 +649,17 @@ def train_phase(counters) -> dict:
         fault_frame_boost=1.0, fault_joint_boost=1.0, arm_wander=0.05))
     check(out["pose"]["preprocess"] > 0, "train_pose built its pool without kernel A")
 
-    before = {k: f.launches for k, f in counters.items()}
+    before = profiling.totals()
     samples = data_mod.make_swing_batch(4, 8, seed=780_000, image_hw=image_hw, render=True,
                                         scene_families=data_mod.TRAIN_SCENE_FAMILIES)
     pck = loops.evaluate_pose(state.model, pose_cfg, samples, alpha=0.05)
-    out["pose_eval"] = {k: f.launches - before[k] for k, f in counters.items()}
+    out["pose_eval"] = launches_since(before)
     check(np.isfinite(pck) and 0.0 <= pck <= 1.0, f"pose evaluation PCK {pck}")
     check(out["pose_eval"]["decode"] == len(samples) and out["pose_eval"]["preprocess"]
           == len(samples), f"pose evaluation launches {out['pose_eval']}")
     say("train_pose_eval", clips=len(samples), frames=8, hw=list(image_hw), pck_at_0_05=pck,
         launches=out["pose_eval"], note="after a handful of steps: a mechanism check")
-    launches = {k: f.launches for k, f in counters.items()}
+    launches = launches_since(since)
 
     # One step on the card against the same step on the CPU, small batch.
     small = dataclasses.replace(tc, batch_size=4)
@@ -712,7 +712,7 @@ def int_conv_exact() -> None:
     check(all(v["equal"] for v in out.values()), "the integer convolution is not exact")
 
 
-def int8_phase(counters, err: dict) -> tuple[dict, dict]:
+def int8_phase(err: dict) -> tuple[dict, dict]:
     """The int8 pose path at full width on the shipped pose checkpoint.
     Returns (launches, kernel F's entry for the kernels line)."""
     from golfaction_tpu_torch import quantize_eval as qe
@@ -834,14 +834,13 @@ def int8_phase(counters, err: dict) -> tuple[dict, dict]:
     say("time_requant_sites", per_shape=per_shape)
 
     # int8_path: the evaluation a user runs, through the entry point.
-    for fn in counters.values():
-        fn.launches = 0
+    since = profiling.totals()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     result = qe.evaluate(model, calib, crops, gt, boxes, reps=5)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in counters.items()}
+    launches = launches_since(since)
     calls = 1 + 1 + 5                      # one for the PCK, one warm, five timed
     check(launches["requant"] == 20 * calls,
           f"{launches['requant']} launches of kernel F for {calls} fused forwards")
@@ -1018,7 +1017,7 @@ def group_norm_phase(pose_model, crops) -> dict:
                 bytes=tot["bytes"], ops=tot["ops"])
 
 
-def options_phase(clips, boxes, counters) -> dict:
+def options_phase(clips, boxes) -> dict:
     """The pose pass's options on the card: box refinement with the shipped
     model, then temporal context, spread features and the refiner together
     at random weights against the CPU."""
@@ -1038,11 +1037,10 @@ def options_phase(clips, boxes, counters) -> dict:
     seen = []
     pass_ = pipe._pose_pass
     pipe._pose_pass = lambda f, b, **kw: (seen.append(b), pass_(f, b, **kw))[1]
-    for fn in counters.values():
-        fn.launches = 0
+    since = profiling.totals()
     res = pipe.analyze(clips[0])                 # host boxes: the refinement replaces them
     torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in counters.items()}
+    launches = launches_since(since)
     check(len(seen) == 2 and seen[0].shape[1] == CLIP_T // 8, "box refinement: pose passes")
     rb = seen[1][0]
     inside = bool(((rb[:, 0] >= 0) & (rb[:, 0] <= W - 1) & (rb[:, 1] >= 0) & (rb[:, 1] <= H - 1)
@@ -1072,18 +1070,18 @@ def options_phase(clips, boxes, counters) -> dict:
         with torch.no_grad():
             p.refine_model.head.weight.copy_(head)
     pipe = pipes["cuda"]
-    before = {k: fn.launches for k, fn in counters.items()}
+    before = profiling.totals()
     r0 = pipe.analyze(clips[1], boxes=boxes[1])
     reference = pipe.extract_skeleton(r0)
     r1 = pipe.analyze(clips[0], boxes=boxes[0], reference=reference)
     torch.cuda.synchronize()
     check_results([r0, r1], reference)
+    context = launches_since(before)
     for k in launches:
-        launches[k] += counters[k].launches - before[k]
-    check(counters["preprocess"].launches - before["preprocess"] == 2 * 3,
-          "in_frames=3: kernel A runs once per neighbour offset")
+        launches[k] += context[k]
+    check(context["preprocess"] == 2 * 3, "in_frames=3: kernel A runs once per neighbour offset")
     say("options_context_spread_refine", in_frames=3, spread_features=True, refine=True,
-        launches={k: counters[k].launches - before[k] for k in counters})
+        launches=context)
     small = [c[:20] for c in clips[2:4]]
     small_boxes = [b[:20] for b in boxes[2:4]]
     ref_small = Skeleton(keypoints=reference.keypoints[:40].cpu(),
@@ -1440,7 +1438,7 @@ def shipped_bf16_phase(pipe, pipe32, cpu32, clips, boxes, crops) -> None:
           "its float32 ones")
 
 
-def batch_overlap_phase(clips, boxes, reference, counters) -> dict:
+def batch_overlap_phase(clips, boxes, reference) -> dict:
     """analyze_batch of 12 clips in 3 chunks (clip_batch 4; the smoke's four
     batch clips three times) against three one-chunk calls, cuDNN held to
     deterministic algorithms: equal to the bit.  Frames/s of both forms,
@@ -1487,10 +1485,9 @@ def batch_overlap_phase(clips, boxes, reference, counters) -> dict:
     torch.backends.cudnn.deterministic = True
     try:
         three_chunks()                                   # warm
-        for fn in counters.values():
-            fn.launches = 0
+        since = profiling.totals()
         res3, wall3 = timed(three_chunks)
-        launches = {k: fn.launches for k, fn in counters.items()}
+        launches = launches_since(since)
         copy3, stats = list(pipe.last_copy_ms), dict(pipe.last_batch_stats)
         (res1, copy1), wall1 = timed(one_chunk_calls)
         # Three profiled runs of each form, alternating; the median of each
@@ -1525,7 +1522,7 @@ def batch_overlap_phase(clips, boxes, reference, counters) -> dict:
     return launches
 
 
-def stream_cli_phase(pipe, clip, counters) -> tuple[dict, dict]:
+def stream_cli_phase(pipe, clip) -> tuple[dict, dict]:
     """One 1080p clip through analyze_stream (one 64-frame window) and
     through `cli analyze --report --render`: the emitted keypoints equal the
     same frames' _core_fn output on the card (cuDNN deterministic), the
@@ -1546,23 +1543,21 @@ def stream_cli_phase(pipe, clip, counters) -> tuple[dict, dict]:
 
     torch.backends.cudnn.deterministic = True
     try:
-        for fn in counters.values():
-            fn.launches = 0
+        since = profiling.totals()
         emitted = list(streaming.analyze_stream(pipe, iter(clip), window=CLIP_T, hop=CLIP_T))
-        stream_launches = {k: fn.launches for k, fn in counters.items()}
+        stream_launches = launches_since(since)
         check([r["frame_index"] for r in emitted] == list(range(CLIP_T)), "stream: frames")
         stream_kp = np.stack([r["keypoints"] for r in emitted])
         stream_equal = bool(np.array_equal(stream_kp, core_keypoints(clip)))
         with tempfile.TemporaryDirectory() as d:
             mp4 = f"{d}/swing.mp4"
             visualize.write_video(mp4, clip, fps=30)
-            for fn in counters.values():
-                fn.launches = 0
+            since = profiling.totals()
             buf = io.StringIO()
             with contextlib.redirect_stdout(buf):
                 cli.main(["analyze", mp4, "--checkpoint", "artifacts", "--report", "--render",
                           f"{d}/overlay.mp4", "--out", f"{d}/res.json"])
-            cli_launches = {k: fn.launches for k, fn in counters.items()}
+            cli_launches = launches_since(since)
             with open(f"{d}/res.json") as f:
                 res = json.load(f)
             cli_kp = np.asarray(res["keypoints"], np.float32)
@@ -1591,7 +1586,7 @@ def _leaf_keys(tree) -> dict:
     return {k: _leaf_keys(v) if isinstance(v, dict) else None for k, v in tree.items()}
 
 
-def e2e_score_phase(counters) -> tuple[dict, dict]:
+def e2e_score_phase() -> tuple[dict, dict]:
     """demo_e2e at small counts (2 clips, one per fault plus two clean, one
     clip per held-out family, one jitter clip; 48 frames at 540x960) into
     a temporary directory: the JSON keys of the JAX script's shipped result
@@ -1608,8 +1603,7 @@ def e2e_score_phase(counters) -> tuple[dict, dict]:
     with open("artifacts/demo/e2e_metrics.json") as f:
         want = json.load(f)
     with tempfile.TemporaryDirectory() as d:
-        for fn in counters.values():
-            fn.launches = 0
+        since = profiling.totals()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()):
@@ -1617,7 +1611,7 @@ def e2e_score_phase(counters) -> tuple[dict, dict]:
                                  "--per-fault", "1", "--domain-clips", "1",
                                  "--jitter-clips", "1"])
         seconds = time.perf_counter() - t0
-        launches = {k: fn.launches for k, fn in counters.items()}
+        launches = launches_since(since)
         video = os.path.getsize(got["comparison_video"])
     scores = [got["pck05_mean"], got["phase_acc_mean"], got["phase_f1_mean"],
               got["align_progress_err_mean"], *got["error_detection"].values(),
@@ -1784,7 +1778,7 @@ def cascade_vs_cpu(collection: dict) -> dict:
     return out
 
 
-def cascade_phase(counters) -> dict:
+def cascade_phase() -> dict:
     """`cascade_finetune` on the shipped tree at full width and its dtype
     (CASCADE_ARGS) into a temporary folder, then `calibrate_thresholds
     --per-fault 1` on the new tree: artifacts/ byte for byte unchanged, every
@@ -1801,8 +1795,7 @@ def cascade_phase(counters) -> dict:
     before = tree_digest("artifacts")
     grid = set(np.round(np.linspace(0.20, 0.90, 15), 6))
     with tempfile.TemporaryDirectory() as d:
-        for fn in counters.values():
-            fn.launches = 0
+        since = profiling.totals()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()):
@@ -1813,7 +1806,7 @@ def cascade_phase(counters) -> dict:
                                              "--per-fault", "1"])
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        launches = {k: fn.launches for k, fn in counters.items()}
+        launches = launches_since(since)
         pipe = Pipeline.from_artifacts(f"{d}/tree", device="cuda")
         clip = render_clip(swing_keypoints(48, np.random.default_rng(5)), seed=5)
         out = pipe.analyze(clip)
@@ -1855,9 +1848,9 @@ BWD_POINTS = (64, 192)          # B at T = 128: the JAX script's two recorded po
 BWD_ARGS = ("--T", "128", "--iters", "3", "--scan-timeout", "30")
 
 
-def _counted(counters) -> dict:
+def _counted(since: dict) -> dict:
     torch.cuda.synchronize()
-    return {k: fn.launches for k, fn in counters.items()}
+    return launches_since(since)
 
 
 def _quiet(main, argv):
@@ -1915,7 +1908,7 @@ def _finite_analyze(root: str) -> dict:
             "keypoints": list(res.keypoints.shape)}
 
 
-def retrain_eval_and_train(d: str, counters, seconds: dict, paths: dict) -> str:
+def retrain_eval_and_train(d: str, seconds: dict, paths: dict) -> str:
     """train_eval --eval-only on a copy of the shipped checkpoints, then a
     short training run (--skip pose, then pose alone into the same tree):
     returns the trained tree."""
@@ -1928,11 +1921,11 @@ def retrain_eval_and_train(d: str, counters, seconds: dict, paths: dict) -> str:
     shutil.copytree("artifacts/params", f"{shipped}/params")
     with open("artifacts/metrics.json") as f:
         recorded = json.load(f)
-    _zero(counters)
+    since = _mark()
     t0 = time.perf_counter()
     ev = _quiet(train_eval.main, ["--out", shipped, "--eval-only"])["metrics"]
     seconds["eval_only"] = time.perf_counter() - t0
-    paths["retrain_eval_only"] = _counted(counters)
+    paths["retrain_eval_only"] = _counted(since)
     numbers = {"pose.eval_pck05": (ev["pose"]["eval_pck05"], recorded["pose"]["eval_pck05"]),
                "gcn.eval_f1": (ev["gcn"]["eval_f1"], recorded["gcn"]["eval_f1"]),
                "error.eval.f1": (ev["error"]["eval"]["f1"], recorded["error"]["eval"]["f1"]),
@@ -1948,17 +1941,17 @@ def retrain_eval_and_train(d: str, counters, seconds: dict, paths: dict) -> str:
         check(paths["retrain_eval_only"][k] > 0, f"retrain_eval_only: kernel {k} not launched")
 
     tree = f"{d}/train"
-    _zero(counters)
+    since = _mark()
     t0 = time.perf_counter()
     first = _quiet(train_eval.main, ["--out", tree, "--skip", "pose", *RETRAIN_ARGS])
     seconds["train_gcn_error_align"] = time.perf_counter() - t0
-    skel = _counted(counters)
-    _zero(counters)
+    skel = _counted(since)
+    since = _mark()
     t0 = time.perf_counter()
     res = _quiet(train_eval.main, ["--out", tree, "--skip", "gcn", "error", "align",
                                    *RETRAIN_ARGS])
     seconds["train_pose"] = time.perf_counter() - t0
-    pose_launches = _counted(counters)
+    pose_launches = _counted(since)
     paths["retrain_train"] = {k: skel[k] + pose_launches[k] for k in skel}
     m = res["metrics"]
     align_steps = RETRAIN_STEPS // 2
@@ -1990,7 +1983,7 @@ def retrain_eval_and_train(d: str, counters, seconds: dict, paths: dict) -> str:
     return tree
 
 
-def retrain_probes(d: str, staged: str, counters, seconds: dict, paths: dict) -> None:
+def retrain_probes(d: str, staged: str, seconds: dict, paths: dict) -> None:
     """The three probes on the shipped tree at --pairs 1 and their default
     frames and size, each written into the staged tree; their gains beside
     the committed profiles."""
@@ -2000,7 +1993,7 @@ def retrain_probes(d: str, staged: str, counters, seconds: dict, paths: dict) ->
     for name in ("probe_arm_gain", "probe_heatmap_modes", "probe_heatmap_spread"):
         with open(f"artifacts/{name}.json") as f:
             committed[name] = json.load(f)
-    _zero(counters)
+    since = _mark()
     t0 = time.perf_counter()
     arm = _quiet(probe_arm_gain.main, [*PROBE_ARGS, "--out", f"{staged}/probe_arm_gain.json"])
     seconds["probe_arm_gain"] = time.perf_counter() - t0
@@ -2012,7 +2005,7 @@ def retrain_probes(d: str, staged: str, counters, seconds: dict, paths: dict) ->
     spread = _quiet(probe_heatmap_spread.main, [*PROBE_ARGS, "--out",
                                                 f"{staged}/probe_heatmap_spread.json"])
     seconds["probe_heatmap_spread"] = time.perf_counter() - t0
-    paths["retrain_probes"] = launches = _counted(counters)
+    paths["retrain_probes"] = launches = _counted(since)
     c_arm, c_modes, c_spread = (committed[k] for k in ("probe_arm_gain", "probe_heatmap_modes",
                                                        "probe_heatmap_spread"))
     say("retrain_probes", pairs=1, frames=48, hw=[540, 960],
@@ -2101,7 +2094,7 @@ def retrain_promote(d: str, staged: str, e2e: dict, seconds: dict) -> dict:
     return out
 
 
-def retrain_import(d: str, counters, seconds: dict, paths: dict) -> None:
+def retrain_import(d: str, seconds: dict, paths: dict) -> None:
     """An MMPose-style state dict at the pose net's full width, saved as a
     .pth, imported by import_pose and run through Pipeline.from_artifacts."""
     from golfaction_tpu_torch import config as cfg_mod
@@ -2112,16 +2105,16 @@ def retrain_import(d: str, counters, seconds: dict, paths: dict) -> None:
     t0 = time.perf_counter()
     line = _quiet(import_pose.main, [f"{d}/pose.pth", "--out", f"{d}/imported"])
     seconds["import_pose"] = time.perf_counter() - t0
-    _zero(counters)
+    since = _mark()
     loaded = _finite_analyze(f"{d}/imported")
-    paths["retrain_import"] = _counted(counters)
+    paths["retrain_import"] = _counted(since)
     say("retrain_import", tensors=len(sd), imported=line["imported"], coverage=line["coverage"],
         seconds=round(seconds["import_pose"], 3), loaded=loaded,
         launches=paths["retrain_import"])
     check(line["coverage"] == 1.0 and loaded["finite"], f"retrain_import: {line} {loaded}")
 
 
-def retrain_bwd_bench(counters, seconds: dict, paths: dict) -> None:
+def retrain_bwd_bench(seconds: dict, paths: dict) -> None:
     """softdtw_bwd_bench at B 64 and 192, T 128 (kernel E's two-launch
     layout): first call and step seconds of both paths; then E alone at
     those shapes by events and in a graph, beside its bound, and C's
@@ -2129,11 +2122,11 @@ def retrain_bwd_bench(counters, seconds: dict, paths: dict) -> None:
     from golfaction_tpu_torch import softdtw_bwd_bench
     from golfaction_tpu_torch.ops import softdtw
 
-    _zero(counters)
+    since = _mark()
     t0 = time.perf_counter()
     runs = [_quiet(softdtw_bwd_bench.main, ["--B", str(B), *BWD_ARGS]) for B in BWD_POINTS]
     seconds["softdtw_bwd_bench"] = time.perf_counter() - t0
-    paths["retrain_bwd_bench"] = launches = _counted(counters)
+    paths["retrain_bwd_bench"] = launches = _counted(since)
     say("retrain_bwd_bench", runs=runs, launches=launches,
         seconds=round(seconds["softdtw_bwd_bench"], 3))
     for r in runs:
@@ -2161,7 +2154,7 @@ def retrain_bwd_bench(counters, seconds: dict, paths: dict) -> None:
             forward_graph_ms=graph_ms(lambda: softdtw.wavefront(D, 0.1)))
 
 
-def retrain_chain_phase(counters, e2e: dict) -> dict:
+def retrain_chain_phase(e2e: dict) -> dict:
     """The retraining chain's ends (phase 17): train_eval (evaluation of the
     shipped checkpoints, a short training run), the three probes on the
     shipped tree, promote, import_pose and softdtw_bwd_bench, all writing
@@ -2172,11 +2165,11 @@ def retrain_chain_phase(counters, e2e: dict) -> dict:
     before = tree_digest("artifacts")
     seconds, paths = {}, {}
     with tempfile.TemporaryDirectory() as d:
-        staged = retrain_eval_and_train(d, counters, seconds, paths)
-        retrain_probes(d, staged, counters, seconds, paths)
+        staged = retrain_eval_and_train(d, seconds, paths)
+        retrain_probes(d, staged, seconds, paths)
         retrain_promote(d, staged, e2e, seconds)
-        retrain_import(d, counters, seconds, paths)
-        retrain_bwd_bench(counters, seconds, paths)
+        retrain_import(d, seconds, paths)
+        retrain_bwd_bench(seconds, paths)
     unchanged = tree_digest("artifacts") == before
     say("retrain_chain", seconds={k: round(v, 3) for k, v in seconds.items()},
         artifacts_unchanged=unchanged, launches=paths)
@@ -2210,7 +2203,7 @@ def bf16_gap(got: torch.Tensor, want: torch.Tensor) -> dict:
             "max_ulps": int(d.max()), "max_abs_err": float((got.float() - want.float()).abs().max())}
 
 
-def preprocess_bf16_phase(clips, boxes, counters) -> tuple[dict, dict]:
+def preprocess_bf16_phase(clips, boxes) -> tuple[dict, dict]:
     """The bfloat16 crops (phase 18): kernel A's bfloat16 variant against its
     plain version at the main path's shape with the smoke's and odd boxes,
     its times and bound; `_core_fn` of the shipped model at both
@@ -2291,9 +2284,9 @@ def preprocess_bf16_phase(clips, boxes, counters) -> tuple[dict, dict]:
     with torch.inference_mode():
         for dt, pipe in pipes.items():
             pipe._core_fn(fr, bxs, valid)                     # warm
-            _zero(counters)
+            since = _mark()
             outs[dt] = pipe._core_fn(fr, bxs, valid)
-            launches[dt] = _counted(counters)
+            launches[dt] = _counted(since)
     per_call = -(-PREPROCESS_DTYPE_CLIPS * T // fb) * cfg.pose.in_frames
     kb, kf = outs["bfloat16"]["keypoints"], outs["float32"]["keypoints"]
     d = (kb[..., :2] - kf[..., :2]).abs().flatten().float().cpu().numpy()
@@ -2394,10 +2387,9 @@ def _fields(res) -> dict:
             "path": res.alignment.path, "path_length": res.alignment.path_length}
 
 
-def _zero(counters) -> None:
+def _mark() -> dict:
     torch.cuda.synchronize()
-    for fn in counters.values():
-        fn.launches = 0
+    return profiling.totals()
 
 
 def parallel_rank(rank: int, world: int, spec: dict) -> dict:
@@ -2418,7 +2410,6 @@ def parallel_rank(rank: int, world: int, spec: dict) -> dict:
     torch.backends.cudnn.deterministic = True
     dev = torch.device("cuda:0")
     mesh = mesh_mod.make_mesh(device=dev)
-    counters = kernel_counters()
     out = {}
 
     clips = SmokeClips(spec["clips"])
@@ -2426,14 +2417,14 @@ def parallel_rank(rank: int, world: int, spec: dict) -> dict:
     ref = Skeleton(keypoints=torch.from_numpy(spec["ref_kpts"]),
                    valid=torch.from_numpy(spec["ref_valid"]))
     pipe.analyze_batch(clips, boxes=clips.boxes, reference=ref)            # warm
-    _zero(counters)
+    since = _mark()
     dist.barrier()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = pipe.analyze_batch(clips, boxes=clips.boxes, reference=ref)
     torch.cuda.synchronize()
     out["analyze"] = {"wall_s": time.perf_counter() - t0, "results": [_fields(r) for r in res],
-                      "launches": {k: fn.launches for k, fn in counters.items()},
+                      "launches": launches_since(since),
                       "read": sorted(clips.read), "stats": pipe.last_batch_stats}
     del pipe, clips
     torch.cuda.empty_cache()
@@ -2441,10 +2432,10 @@ def parallel_rank(rank: int, world: int, spec: dict) -> dict:
     models, opt, sched, batch = skeleton_setup(dev)
     mesh_mod.replicate(models, mesh)
     step = ts.make_dp_train_step(torch_dp.skeleton_loss, opt, mesh, sched)
-    _zero(counters)
+    since = _mark()
     aux = step(models, mesh_mod.shard_batch(batch, mesh), 0)
     out["train"] = {"loss": float(aux["loss"]), "grad_norm": float(aux["grad_norm"]),
-                    "launches": {k: fn.launches for k, fn in counters.items()}}
+                    "launches": launches_since(since)}
 
     out["softdtw"] = []
     for (shape, gamma, cc, seed) in spec["sdtw"]:
@@ -2465,7 +2456,7 @@ def parallel_rank(rank: int, world: int, spec: dict) -> dict:
     return out
 
 
-def parallel_phase(clips, reference, counters) -> dict:
+def parallel_phase(clips, reference) -> dict:
     """Data parallelism: two gloo ranks sharing the card (spawned, a file
     store) run the shipped model's sharded analyze_batch on 8 clips
     (clip_batch 4, deterministic cuDNN), one data-parallel skeleton step
@@ -2522,7 +2513,7 @@ def parallel_phase(clips, reference, counters) -> dict:
                                     world_size=1, device_id=dev)
             try:
                 mesh = mesh_mod.make_mesh(device=dev)
-                _zero(counters)
+                since = _mark()
                 pipe = Pipeline.from_artifacts("artifacts", overrides=["clip_batch=4"],
                                                mesh=mesh)
                 nccl = [_fields(r) for r in pipe.analyze_batch(every, boxes=every.boxes,
@@ -2531,7 +2522,7 @@ def parallel_phase(clips, reference, counters) -> dict:
                 models, opt, sched, batch = skeleton_setup(dev)
                 aux = ts.make_dp_train_step(torch_dp.skeleton_loss, opt, mesh, sched)(
                     models, mesh_mod.shard_batch(batch, mesh), 0)
-                nccl_launches = {k: fn.launches for k, fn in counters.items()}
+                nccl_launches = launches_since(since)
                 step_nccl = (float(aux["loss"]), float(aux["grad_norm"]),
                              [p.detach().clone() for p in models.parameters()])
                 del models, opt
@@ -2569,7 +2560,7 @@ def parallel_phase(clips, reference, counters) -> dict:
                      "grad_max_abs_err": float(np.abs(sum(g["grad"] for g in got) - E).max()),
                      "ms_per_call": [g["ms"] for g in got]})
     launches = {k: sum(r["analyze"]["launches"][k] + r["train"]["launches"][k] for r in ranks)
-                + nccl_launches[k] for k in counters}
+                + nccl_launches[k] for k in KERNELS}
     say("parallel", world=world, backend="gloo, both ranks on cuda:0", clips=PARALLEL_CLIPS,
         frames=frames, clip_batch=4, reference=True, ranks_seconds=round(ranks_s, 3),
         frames_per_s={"two_ranks": frames / max(r["analyze"]["wall_s"] for r in ranks),
@@ -2622,11 +2613,10 @@ def options_repeat(runs: int) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip())
     clips, boxes = smoke_clips()
-    counters = kernel_counters()
     failed = 0
     for run in range(runs):
         try:
-            options_phase(clips, boxes, counters)
+            options_phase(clips, boxes)
             say("options_repeat", run=run, ok=True)
         except SmokeFailure as e:
             failed += 1
@@ -2831,9 +2821,7 @@ def main() -> int:
 
     lap("parity")
     # 4. main path ----------------------------------------------------------
-    counters = kernel_counters()
-    for fn in counters.values():
-        fn.launches = 0
+    since = profiling.totals()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res_ref = pipe.analyze(clips[1])                    # host motion-energy boxes
@@ -2842,7 +2830,7 @@ def main() -> int:
     res_batch = pipe.analyze_batch(clips[2:], boxes=boxes[2:], reference=reference)
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in counters.items()}
+    launches = launches_since(since)
     say("main", config="full_pipeline+artifacts", seconds=round(main_s, 3), launches=launches,
         global_launches_per_call={"preprocess": 1, "gcn_tail": 4, "softdtw": 1},
         decode_tracking=cfg.pose.decode_tracking, mode_features=cfg.error.mode_features)
@@ -3041,42 +3029,42 @@ def main() -> int:
     del crops
     lap("group_norm")
     paths = {"main": launches,
-             "batch_overlap": batch_overlap_phase(clips, boxes, reference, counters)}
+             "batch_overlap": batch_overlap_phase(clips, boxes, reference)}
     lap("batch_overlap")
-    paths["stream"], paths["cli"] = stream_cli_phase(pipe, clips[0], counters)
+    paths["stream"], paths["cli"] = stream_cli_phase(pipe, clips[0])
     lap("stream_cli")
     del pipe
     torch.cuda.empty_cache()
-    paths["e2e_score"], e2e_metrics = e2e_score_phase(counters)
+    paths["e2e_score"], e2e_metrics = e2e_score_phase()
     lap("e2e_score")
 
     # 6-9. the single-peak pipeline, the trainers, the int8 path, the options ----
     torch.cuda.empty_cache()
-    paths["single_peak"] = single_peak_phase(clips, boxes, counters)
+    paths["single_peak"] = single_peak_phase(clips, boxes)
     lap("single_peak")
-    paths["train"] = train_phase(counters)
+    paths["train"] = train_phase()
     lap("train")
-    paths["int8_path"], requant_entry = int8_phase(counters, err)
+    paths["int8_path"], requant_entry = int8_phase(err)
     lap("int8_path")
     entries.append(requant_entry)
     say("time", **{k: requant_entry[k] for k in TIME_KEYS if k in requant_entry})
     torch.cuda.empty_cache()
-    paths["options"] = options_phase(clips, boxes, counters)
+    paths["options"] = options_phase(clips, boxes)
     lap("options")
     torch.cuda.empty_cache()
     paths["bench"] = bench_phase()
     lap("bench")
     torch.cuda.empty_cache()
-    paths["parallel"] = parallel_phase(clips, reference, counters)
+    paths["parallel"] = parallel_phase(clips, reference)
     lap("parallel")
     torch.cuda.empty_cache()
-    paths["cascade"] = cascade_phase(counters)
+    paths["cascade"] = cascade_phase()
     lap("cascade")
     torch.cuda.empty_cache()
-    paths.update(retrain_chain_phase(counters, e2e_metrics))
+    paths.update(retrain_chain_phase(e2e_metrics))
     lap("retrain_chain")
     torch.cuda.empty_cache()
-    bf16_paths, bf16_entry = preprocess_bf16_phase(clips, boxes, counters)
+    bf16_paths, bf16_entry = preprocess_bf16_phase(clips, boxes)
     paths.update(bf16_paths)
     entries.append(bf16_entry)
     lap("preprocess_bf16")

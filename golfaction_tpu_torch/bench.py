@@ -66,7 +66,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from golfaction_tpu_torch.ops import kernel_counters
+from golfaction_tpu_torch.ops import launches_since
+from golfaction_tpu_torch.utils import profiling
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BASELINE_FPS = 300.0                   # BASELINE.json's north-star frames/s a chip
@@ -261,9 +262,7 @@ class Bench:
 
     def headline(self) -> None:
         self._setup()
-        self.counters = kernel_counters()
-        for fn in self.counters.values():
-            fn.launches = 0
+        self.totals_at_headline = profiling.totals()
         a = self.args
 
         def run_all():
@@ -421,7 +420,7 @@ class Bench:
                          self.repeats)
         self.result["pose_single_crop_ms"] = dt * 1e3
         _log(f"[config 1] one crop through PoseNet: {dt * 1e3:.3f} ms")
-        self.result["launches"] = {k: fn.launches for k, fn in self.counters.items()}
+        self.result["launches"] = launches_since(self.totals_at_headline)
 
     # -- probes ------------------------------------------------------------------
     def sol_check(self) -> None:

@@ -25,13 +25,11 @@ again.  Each call copies the crops into the graph's input buffer and
 returns a clone of its output: the caller owns the heatmaps, and a later
 replay never overwrites them.
 
-Counters: what the forward counts (`gn_kernel`, 23 a call) is counted only
-while the graph is captured, so the capture tallies it (profiling.tally)
-and each replay counts it again; each replay counts `pose_graph`, each call
-on a card tensor that ran eager `pose_eager`.  The kernel wrappers' own
-launch counters (`fn.launches`, kernel G's 20 a call) count real launches:
-the capture, which launches nothing, takes back what it added, and each
-replay adds it.
+Counters count what the card ran.  The eager warm-up before a capture
+counts as it runs; the capture, which runs nothing, tallies what the
+forward counts (profiling.tally: `gn_kernel` 23 and `launch.group_norm` 20
+a call), and each replay counts that again, and `pose_graph`.  Each call on
+a card tensor that ran eager counts `pose_eager`.
 """
 
 from __future__ import annotations
@@ -42,7 +40,6 @@ import torch
 from torch.nn.modules import module as _module
 
 from golfaction_tpu_torch.models.pose import PoseNet
-from golfaction_tpu_torch.ops import kernel_counters
 from golfaction_tpu_torch.utils import profiling
 
 
@@ -91,14 +88,12 @@ def _hooked(modules: list) -> bool:
 @dataclasses.dataclass
 class Captured:
     """One captured forward: the graph, its input and output buffers, what
-    the forward counted and the kernel launches it holds ({wrapper: n}),
-    the model and storage it was captured on, and the stream of its last
-    replay."""
+    the forward counted, the model and storage it was captured on, and the
+    stream of its last replay."""
     graph: object
     static_in: torch.Tensor
     static_out: torch.Tensor
     counts: dict
-    launches: dict
     model: torch.nn.Module
     storage: tuple
     stream: object = None
@@ -136,8 +131,6 @@ class PoseGraphs:
         cap.stream = stream
         cap.static_in.copy_(crops)
         cap.graph.replay()
-        for fn, n in cap.launches.items():
-            fn.launches += n
         for name, n in cap.counts.items():
             profiling.count(name, n)
         profiling.count("pose_graph")
@@ -148,17 +141,10 @@ class PoseGraphs:
         # which a later call in any mode may copy into.
         with torch.inference_mode(False), torch.no_grad():
             static_in = crops.clone(memory_format=torch.contiguous_format)
-            with profiling.tally():
-                self._warm_up(model, static_in)
-            before = {fn: fn.launches for fn in kernel_counters().values()}
+            self._warm_up(model, static_in)
             with profiling.tally() as counts:
                 graph, static_out = self._record(model, static_in)
-        launches = {}
-        for fn, n in before.items():
-            if fn.launches != n:
-                launches[fn] = fn.launches - n
-                fn.launches = n                      # the capture launched nothing
-        return Captured(graph, static_in, static_out, counts, launches, model, storage)
+        return Captured(graph, static_in, static_out, counts, model, storage)
 
     @staticmethod
     def _warm_up(model: torch.nn.Module, x: torch.Tensor) -> None:

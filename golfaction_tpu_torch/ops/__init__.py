@@ -1,13 +1,14 @@
-"""Ops: plain torch functions and the wrappers of the hand-written CUDA kernels."""
+"""Ops: plain torch functions and the wrappers of the hand-written CUDA kernels,
+each counting its launches as `profiling.count("launch.<key>")`, a key of `KERNELS`."""
+
+from golfaction_tpu_torch.utils import profiling
+
+KERNELS = ("preprocess", "gcn_tail", "softdtw", "decode", "softdtw_bwd", "requant",
+           "preprocess_bf16", "group_norm")
 
 
-def kernel_counters() -> dict:
-    """Each kernel's wrapper, which counts its launches (`fn.launches`)."""
-    from golfaction_tpu_torch.ops import (gcn_tail, group_norm, heatmap, preprocess, requant,
-                                          softdtw)
-
-    return {"preprocess": preprocess.crop_resize_normalize, "gcn_tail": gcn_tail.gcn_block_tail,
-            "softdtw": softdtw.wavefront, "decode": heatmap.decode_heatmaps,
-            "softdtw_bwd": softdtw.softdtw_backward, "requant": requant.requant_epilogue,
-            "preprocess_bf16": preprocess.crop_resize_normalize_bf16,
-            "group_norm": group_norm.group_norm_act}
+def launches_since(since: dict) -> dict:
+    """{key: launches} of each kernel counted since `since`, an earlier
+    `profiling.totals()`."""
+    now = profiling.totals()
+    return {k: now.get(f"launch.{k}", 0) - since.get(f"launch.{k}", 0) for k in KERNELS}

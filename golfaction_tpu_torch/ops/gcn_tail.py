@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from golfaction_tpu_torch.ops import _kernels
+from golfaction_tpu_torch.utils import profiling
 
 _EPS = 1e-6            # flax LayerNorm epsilon
 _MAX_SEG = 16          # branches + max-pool branch the kernel takes
@@ -338,8 +339,5 @@ def gcn_block_tail(x: torch.Tensor, la: torch.Tensor, w: TailWeights) -> torch.T
     _kernels.check(rc, "gcn_block_tail kernel")
     # One count per call of the kernel, which is four __global__ launches:
     # rows, taps, gates, apply.
-    gcn_block_tail.launches += 1
+    profiling.count("launch.gcn_tail")
     return out
-
-
-gcn_block_tail.launches = 0

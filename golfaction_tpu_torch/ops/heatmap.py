@@ -112,11 +112,8 @@ def decode_heatmaps(heatmaps: torch.Tensor, method: str = "udp") -> torch.Tensor
     fn = _kernels.bind("decode", "decode_heatmaps_launch", "ppiiip")
     rc = fn(_kernels.ptr(hm), _kernels.ptr(out), M, H, W, _kernels.stream_of(hm))
     _kernels.check(rc, "heatmap decode kernel")
-    decode_heatmaps.launches += 1
+    profiling.count("launch.decode")
     return out.reshape(*lead, 3)
-
-
-decode_heatmaps.launches = 0
 
 
 def topk_modes(heatmaps: torch.Tensor, k: int = 4, suppress_radius: float = 3.0,

@@ -32,6 +32,7 @@ import torch
 
 from golfaction_tpu_torch.ops import _kernels
 from golfaction_tpu_torch.ops import affine
+from golfaction_tpu_torch.utils import profiling
 
 # ImageNet normalization.
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -279,7 +280,7 @@ def crop_resize_normalize_bf16(frames: torch.Tensor, boxes: torch.Tensor,
     out = _launch("crop_resize_normalize_bf16_launch", frames, boxes, out_hw, torch.bfloat16,
                   (*mean, *std, *division_reciprocals(mean, std)))
     if out.shape[0]:
-        crop_resize_normalize_bf16.launches += 1
+        profiling.count("launch.preprocess_bf16")
     return out
 
 
@@ -300,9 +301,5 @@ def crop_resize_normalize(frames: torch.Tensor, boxes: torch.Tensor,
     out = _launch("crop_resize_normalize_launch", frames, boxes, out_hw, torch.float32,
                   (*mean, *std))
     if out.shape[0]:
-        crop_resize_normalize.launches += 1
+        profiling.count("launch.preprocess")
     return out
-
-
-crop_resize_normalize.launches = 0
-crop_resize_normalize_bf16.launches = 0

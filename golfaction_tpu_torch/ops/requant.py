@@ -32,6 +32,7 @@ from typing import NamedTuple
 import torch
 
 from golfaction_tpu_torch.ops import _kernels
+from golfaction_tpu_torch.utils import profiling
 
 GN_EPS = 1e-6
 MAX_CHANNELS = 1024          # a block's threads cover one row of channels
@@ -234,7 +235,7 @@ def requant_epilogue(y_i32, sy, gamma, beta, groups: int, residual=None,
                           max_cluster=max_cluster, sms=sms, l2_bytes=l2)
     launch(out, geo, y_i32, sy, gamma, beta, groups, residual, res_scale, res_gamma, res_beta,
            relu, out_scale)
-    requant_epilogue.launches += 1
+    profiling.count("launch.requant")
     return out
 
 
@@ -258,6 +259,3 @@ def launch(out, geo: Geometry, y_i32, sy, gamma, beta, groups: int, residual=Non
             p(out), N, H * W, C, groups, geo.wa, geo.cluster, geo.rpb, int(geo.staged),
             _kernels.stream_of(y_i32))
     _kernels.check(rc, "requant epilogue kernel")
-
-
-requant_epilogue.launches = 0

@@ -228,7 +228,7 @@ def wavefront(D: torch.Tensor, gamma: float) -> torch.Tensor:
         return torch.empty_like(D)
     geo = wavefront_geometry(B, Ta, Tb, _sms_of(D))
     R = launch_wavefront(D, gamma, geo)
-    wavefront.launches += 1
+    profiling.count("launch.softdtw")
     return R
 
 
@@ -243,9 +243,6 @@ def launch_wavefront(D: torch.Tensor, gamma: float, geo: WavefrontGeometry) -> t
             geo.tables, int(geo.staged), int(vec), _kernels.stream_of(D))
     _kernels.check(rc, "softdtw wavefront kernel")
     return R
-
-
-wavefront.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -382,7 +379,7 @@ def softdtw_backward(D: torch.Tensor, R: torch.Tensor, gamma: float) -> torch.Te
         return E.transpose(1, 2).contiguous()
     geo = backward_geometry(B, Ta, Tb, _sms_of(D))
     E = launch_backward(D, R, gamma, geo)
-    softdtw_backward.launches += 1
+    profiling.count("launch.softdtw_bwd")
     return E
 
 
@@ -404,9 +401,6 @@ def launch_backward(D: torch.Tensor, R: torch.Tensor, gamma: float,
             geo.warps, geo.tables, int(geo.fits), geo.ring, int(vec), _kernels.stream_of(D))
     _kernels.check(rc, "softdtw backward kernel")
     return E
-
-
-softdtw_backward.launches = 0
 
 
 class _SoftDTWCost(torch.autograd.Function):

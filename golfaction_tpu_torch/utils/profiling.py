@@ -3,11 +3,12 @@ JAX package's `golfaction_tpu/utils/profiling.py`.
 
 `span(name)` and `count(name, n)` are the program's own instrumentation,
 kept in memory (`recorded()`, `reset()`) while a `torch.profiler` profile is
-active in the calling thread, and nothing otherwise: an edge then costs one
-check of the profiler's state.  `tally()` collects a block's counts instead,
-so that a replayed CUDA graph can count again what its capture counted.  A
-recorded span is also a `record_function` range, so a trace of host
-activity shows it.
+active in the calling thread; a span otherwise costs one check of the
+profiler's state.  Every count also goes to a running total, always on,
+that `totals()` copies; readers diff two copies.  `tally()` collects a
+block's counts instead, so that a replayed CUDA graph can count again what
+its capture counted.  A recorded span is also a `record_function` range,
+so a trace of host activity shows it.
 `StageTimer` accumulates wall time per named stage, each stage a span and,
 when given a CUDA fence, closed by a `torch.cuda.synchronize` of that
 device, so that a stage's time includes the device work it enqueued.
@@ -75,19 +76,27 @@ class Recorded:
 
 
 class Recorder:
-    """Spans and counters kept in a bounded buffer while the profiler is on.
-    Nesting is per thread; ids are unique across threads."""
+    """Spans and counters kept in a bounded buffer while the profiler is on,
+    and running totals of the counters.  Nesting is per thread; ids are
+    unique across threads."""
 
     def __init__(self, capacity: int = 1 << 16):
         self.capacity = capacity
         self._local = threading.local()
         self._lock = threading.Lock()
         self._ids = itertools.count()
+        self._totals: dict = {}
         self.reset()
 
     def reset(self) -> None:
         with self._lock:
             self._spans, self._counts, self._dropped = [], [], 0
+
+    def totals(self) -> dict:
+        """A copy of the running totals, {name: n}, of the counts made
+        outside a tally since the process began; `reset` leaves them."""
+        with self._lock:
+            return dict(self._totals)
 
     def recorded(self) -> Recorded:
         with self._lock:
@@ -99,12 +108,15 @@ class Recorder:
         return self._open(name) if _profiling() else _OFF
 
     def count(self, name: str, n: int = 1) -> None:
-        """Count `n` of `name` here, while the profiler is on; inside a
-        `tally` of this thread, into the tally instead."""
+        """Count `n` of `name` into the totals, and here while the profiler
+        is on; inside a `tally` of this thread, into the tally instead."""
         tally = getattr(self._local, "tally", None)
         if tally is not None:
             tally[name] = tally.get(name, 0) + n
-        elif _profiling():
+            return
+        with self._lock:
+            self._totals[name] = self._totals.get(name, 0) + n
+        if _profiling():
             stack = self._stack()
             self._keep(self._counts, CountRecord(name, n, stack[-1] if stack else None,
                                                  stack[0] if stack else None))
@@ -112,8 +124,9 @@ class Recorder:
     @contextlib.contextmanager
     def tally(self):
         """A block whose counts in this thread go to the dict it yields
-        ({name: n}), whatever the profiler's state, and are not recorded:
-        what a call counted, for a replay of that call to count again."""
+        ({name: n}), whatever the profiler's state, and neither to the
+        totals nor to the records: what a call counted, for a replay of that
+        call to count again."""
         outer = getattr(self._local, "tally", None)
         self._local.tally = counts = {}
         try:
@@ -155,6 +168,7 @@ RECORDER = Recorder()
 span = RECORDER.span
 count = RECORDER.count
 tally = RECORDER.tally
+totals = RECORDER.totals
 recorded = RECORDER.recorded
 reset = RECORDER.reset
 

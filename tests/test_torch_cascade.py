@@ -46,8 +46,8 @@ from golfaction_tpu_torch import config as tcfg
 from golfaction_tpu_torch import weights
 from golfaction_tpu_torch.models.error import ErrorClassifier
 from golfaction_tpu_torch.models.gcn import normalize_skeleton
-from tests.torch_cascade_tree import (ROOT, TINY, TINY_SET, build_tree, jax_params,  # noqa: F401
-                                      one_torch_thread, tiny_get_config, tree_bytes)
+from tests.torch_cascade_tree import (ROOT, TINY, TINY_SET, build_tree, jax_params,
+                                      tiny_get_config, tree_bytes)
 from tests.torch_parity import sub_config, to_numpy
 
 T, HW = 16, (96, 128)

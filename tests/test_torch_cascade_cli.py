@@ -21,8 +21,8 @@ from golfaction_tpu_torch import calibrate_thresholds as ct
 from golfaction_tpu_torch import cascade_finetune as cf
 from golfaction_tpu_torch import checkpoint
 from golfaction_tpu_torch.pipeline.orchestrator import Pipeline
-from tests.torch_cascade_tree import (ROOT, TINY, TINY_SET, build_tree, jax_params,  # noqa: F401
-                                      one_torch_thread, tree_bytes)
+from tests.torch_cascade_tree import (ROOT, TINY, TINY_SET, build_tree, jax_params,
+                                      tree_bytes)
 
 SETS = [a for s in TINY_SET for a in ("--set", s)]
 SMALL = ["--clips", "2", "--aug", "4", "--calib-clips", "1", "--frames", "16", "--steps", "2",

@@ -15,7 +15,7 @@ from golfaction_tpu import config as jcfg
 from golfaction_tpu.train import data as jdata
 from golfaction_tpu_torch import config as tcfg
 from golfaction_tpu_torch.train import data as tdata
-from tests.torch_cascade_tree import ROOT, one_torch_thread  # noqa: F401
+from tests.torch_cascade_tree import ROOT
 
 E, V = 8, 17
 LOADERS = {"probe_arm_gain.json": "load_gain_profile",

@@ -19,7 +19,7 @@ from golfaction_tpu_torch import types as ttypes
 from golfaction_tpu_torch import weights
 from golfaction_tpu_torch.pipeline import orchestrator as torch_orch
 from golfaction_tpu_torch.train import losses as tlosses
-from tests.torch_cascade_tree import TINY, jax_params, one_torch_thread  # noqa: F401
+from tests.torch_cascade_tree import TINY, jax_params
 from tests.torch_parity import port_config, to_numpy
 
 

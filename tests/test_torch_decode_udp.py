@@ -11,6 +11,8 @@ import chip_smoke
 from golfaction_tpu.ops import heatmap as jhm
 from golfaction_tpu.ops.pallas import decode_kernel
 from golfaction_tpu_torch.ops import heatmap as thm
+from golfaction_tpu_torch.ops import launches_since
+from golfaction_tpu_torch.utils import profiling
 
 
 def _assert_decodes_equal(got: np.ndarray, want: np.ndarray):
@@ -63,11 +65,11 @@ def test_ties_and_degenerate_rows():
 
 
 def test_decode_on_cpu_launches_nothing():
-    n0 = thm.decode_heatmaps.launches
+    since = profiling.totals()
     hm = torch.from_numpy(_maps("gaussians"))
     np.testing.assert_array_equal(thm.decode_heatmaps(hm, "udp").numpy(),
                                   thm.decode_heatmaps_plain(hm, "udp").numpy())
-    assert thm.decode_heatmaps.launches == n0
+    assert launches_since(since)["decode"] == 0
     with pytest.raises(ValueError):
         thm.decode_heatmaps(hm, "nearest")
 

@@ -16,7 +16,8 @@ from golfaction_tpu_torch import config as tcfg
 from golfaction_tpu_torch import graph as tgraph
 from golfaction_tpu_torch import weights
 from golfaction_tpu_torch.models import gcn as tgcn
-from golfaction_tpu_torch.ops import gcn_tail
+from golfaction_tpu_torch.ops import launches_since
+from golfaction_tpu_torch.utils import profiling
 from tests.torch_parity import sub_config, to_numpy
 
 V = 17
@@ -107,11 +108,11 @@ def test_fused_forward_needs_prepare():
 def test_tail_on_cpu_launches_nothing():
     port = tgcn.ActionSegmentationGCN(tcfg.GCNConfig(block_channels=(8, 16)))
     port.prepare()
-    n0 = gcn_tail.gcn_block_tail.launches
+    since = profiling.totals()
     with torch.no_grad():
         out = port(torch.ones(1, 8, V, 3), torch.ones(1, 8, dtype=torch.bool), fused=True)
     assert out.shape == (1, 8, 9)
-    assert gcn_tail.gcn_block_tail.launches == n0
+    assert launches_since(since)["gcn_tail"] == 0
 
 
 @pytest.mark.parametrize("masked", [False, True])

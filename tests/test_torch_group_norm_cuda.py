@@ -28,7 +28,7 @@ from golfaction_tpu_torch import config as tcfg
 from golfaction_tpu_torch import weights
 from golfaction_tpu_torch.models import pose as tpose
 from golfaction_tpu_torch.models import precision
-from golfaction_tpu_torch.ops import _kernels, requant
+from golfaction_tpu_torch.ops import _kernels, launches_since, requant
 from golfaction_tpu_torch.ops import group_norm as kernel_g
 from golfaction_tpu_torch.utils import profiling
 from tests.test_torch_group_norm import SITES   # the shipped net's 20 launch sites
@@ -108,10 +108,10 @@ def site_gap(got, args) -> dict:
 def _site_gap(N, H, W, C, mode, seed, dev):
     x, r, x2, w, b, w2, b2 = _site_inputs(N, H, W, C, seed, dev)
     args = (x, min(32, C), w, b, r if mode == 1 else None, x2 if mode == 2 else None, w2, b2)
-    n0 = kernel_g.group_norm_act.launches
+    since = profiling.totals()
     got = kernel_g.group_norm_act(*args)
     torch.cuda.synchronize()
-    assert kernel_g.group_norm_act.launches == n0 + 1
+    assert launches_since(since)["group_norm"] == 1
     return got, site_gap(got, args)
 
 
@@ -186,7 +186,7 @@ def _crops(n, seed, dev):
 def test_shipped_net_counts_23_group_norms_a_call(dev):
     net, crops = _shipped_net(dev), _crops(64, 1, dev)
     profiling.reset()
-    n0 = kernel_g.group_norm_act.launches
+    since = profiling.totals()
     with torch.inference_mode():
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]):
             net(crops)
@@ -195,8 +195,8 @@ def test_shipped_net_counts_23_group_norms_a_call(dev):
     for c in profiling.recorded().counts:
         counts[c.name] = counts.get(c.name, 0) + c.n
     profiling.reset()
-    assert kernel_g.group_norm_act.launches == n0 + 20
-    assert counts == {"gn_kernel": 23}
+    assert launches_since(since)["group_norm"] == 20
+    assert counts == {"gn_kernel": 23, "launch.group_norm": 20}
 
 
 @pytest.mark.parametrize("seed", [2, 3, 4])
@@ -243,9 +243,9 @@ def test_training_forward_takes_the_plain_path_and_its_gradients(dev):
         forward(x).square().mean().backward()
         return {k: p.grad.clone() for k, p in net.named_parameters()}
 
-    n0 = kernel_g.group_norm_act.launches
+    since = profiling.totals()
     got = grads(net)
-    assert kernel_g.group_norm_act.launches == n0
+    assert launches_since(since)["group_norm"] == 0
 
     def gn(mod, t):
         out = kernel_g.group_norm_plain(t.movedim(1, -1), mod.num_groups, mod.weight, mod.bias)

@@ -20,9 +20,11 @@ import torch
 
 from golfaction_tpu_torch import config as tcfg
 from golfaction_tpu_torch.models.gcn import GCNBlock
-from golfaction_tpu_torch.ops import _kernels, affine, gcn_tail, heatmap, preprocess, softdtw
+from golfaction_tpu_torch.ops import (_kernels, affine, gcn_tail, heatmap, launches_since,
+                                      preprocess, softdtw)
 from golfaction_tpu_torch.pipeline.orchestrator import Pipeline
 from golfaction_tpu_torch.types import Skeleton
+from golfaction_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 ROOT = Path(__file__).resolve().parent.parent
@@ -54,11 +56,11 @@ def test_preprocess_kernel_matches_plain(dev, b, h, w, oh, ow):
     frames, boxes = _frames_boxes(np.random.default_rng(b), b, h, w)
     f = torch.from_numpy(frames).to(dev)
     bx = torch.from_numpy(boxes).to(dev)
-    n0 = preprocess.crop_resize_normalize.launches
+    since = profiling.totals()
     got = preprocess.crop_resize_normalize(f, bx, (oh, ow))
     want = preprocess.crop_resize_normalize_reference(f, bx, (oh, ow))
     torch.cuda.synchronize()
-    assert preprocess.crop_resize_normalize.launches == n0 + 1
+    assert launches_since(since)["preprocess"] == 1
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-4)
     again = preprocess.crop_resize_normalize(f, bx, (oh, ow))
     assert torch.equal(got, again)                        # two runs, the same bits
@@ -102,13 +104,12 @@ def test_preprocess_bf16_kernel_matches_plain(dev, b, h, w, oh, ow):
     frames, boxes = _frames_boxes(np.random.default_rng(b), b, h, w)
     f = torch.from_numpy(frames).to(dev)
     bx = torch.from_numpy(boxes).to(dev)
-    n0 = preprocess.crop_resize_normalize_bf16.launches
-    n32 = preprocess.crop_resize_normalize.launches
+    since = profiling.totals()
     got = preprocess.crop_resize_normalize(f, bx, (oh, ow), dtype=torch.bfloat16)
     want = preprocess.crop_resize_normalize_bf16_reference(f, bx, (oh, ow))
     torch.cuda.synchronize()
-    assert preprocess.crop_resize_normalize_bf16.launches == n0 + 1
-    assert preprocess.crop_resize_normalize.launches == n32
+    assert launches_since(since)["preprocess_bf16"] == 1
+    assert launches_since(since)["preprocess"] == 0
     assert got.dtype == torch.bfloat16 and tuple(got.shape) == (b, oh, ow, 3)
     assert torch.equal(got, want)
     # The CPU's plain version gives the same bits.
@@ -206,11 +207,11 @@ def test_gcn_tail_kernel_matches_plain(dev, C, T, B):
     gen = torch.Generator().manual_seed(T)
     x = torch.randn((B, T, 17, C), generator=gen).to(dev)
     la = torch.tensor(_ragged_lengths(B, T), dtype=torch.int32, device=dev)
-    n0 = gcn_tail.gcn_block_tail.launches
+    since = profiling.totals()
     got = gcn_tail.gcn_block_tail(x, la, tail)
     want = gcn_tail.gcn_block_tail_plain(x, la, tail)
     torch.cuda.synchronize()
-    assert gcn_tail.gcn_block_tail.launches == n0 + 1
+    assert launches_since(since)["gcn_tail"] == 1
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-3, rtol=1e-4)
     masked = torch.arange(T, device=dev)[None, :] >= la[:, None]
     assert not bool(got[masked].any())                    # padded frames stay zero
@@ -254,11 +255,11 @@ def test_wavefront_kernel_matches_plain(dev, B, Ta, Tb, gamma):
     a = torch.from_numpy(rng.normal(size=(B, Ta, 16)).astype(np.float32)).to(dev)
     c = torch.from_numpy(rng.normal(size=(B, Tb, 16)).astype(np.float32)).to(dev)
     D = softdtw.pairwise_sqdist(a, c).contiguous()
-    n0 = softdtw.wavefront.launches
+    since = profiling.totals()
     got = softdtw.wavefront(D, gamma)
     want = softdtw.wavefront_plain(D, gamma)
     torch.cuda.synchronize()
-    assert softdtw.wavefront.launches == n0 + 1
+    assert launches_since(since)["softdtw"] == 1
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5, atol=1e-5)
     if gamma == 0.0:
         la = torch.full((B,), Ta, dtype=torch.int32)
@@ -278,11 +279,11 @@ def test_decode_kernel_matches_plain(dev, H, W):
                                 + (np.mgrid[0:H, 0:W][0] - rng.uniform(0, H - 1)) ** 2) / 8.0)
                        for _ in range(40)]).astype(np.float32)
     hm = torch.from_numpy(np.concatenate([chip_smoke.decode_edge_rows(H, W), rand, smooth])).to(dev)
-    n0 = heatmap.decode_heatmaps.launches
+    since = profiling.totals()
     got = heatmap.decode_heatmaps(hm, "udp")
     want = heatmap.decode_heatmaps_plain(hm, "udp")
     torch.cuda.synchronize()
-    assert heatmap.decode_heatmaps.launches == n0 + 1
+    assert launches_since(since)["decode"] == 1
     got, want = got.cpu().numpy(), want.cpu().numpy()
     # Integer peak and score exact; x, y within 1e-4 px (logf and the
     # Taylor step round the same way on the card, so they are equal there).
@@ -301,18 +302,18 @@ def test_softdtw_backward_kernel_matches_plain(dev, B, Ta, Tb):
     a, c = (torch.nn.functional.normalize(t, dim=-1) for t in (a, c))
     D = softdtw.pairwise_sqdist(a, c).contiguous()
     R = softdtw.wavefront(D, 0.1)
-    n0 = softdtw.softdtw_backward.launches
+    since = profiling.totals()
     got = softdtw.softdtw_backward(D, R, 0.1)
     want = softdtw.softdtw_backward_plain(D, R, 0.1)
     torch.cuda.synchronize()
-    assert softdtw.softdtw_backward.launches == n0 + 1
+    assert launches_since(since)["softdtw_bwd"] == 1
     # float32 products of up to Ta+Tb weights: relative error grows with the
     # path length, so rtol 1e-4 with a floor at 1e-6 of the largest entry.
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4,
                                atol=1e-6 * float(want.abs().max()))
     Dg = D.clone().requires_grad_()
     (g,) = torch.autograd.grad(softdtw.softdtw_cost(Dg[:, :, :], 0.1).sum(), Dg)
-    assert softdtw.softdtw_backward.launches == n0 + 2
+    assert launches_since(since)["softdtw_bwd"] == 2
     np.testing.assert_array_equal(g.cpu().numpy(), got.cpu().numpy())
 
 
@@ -343,11 +344,11 @@ def _bwd_inputs(B, Ta, Tb, dev, seed):
 def test_softdtw_backward_layouts_match_plain(dev, B, Ta, Tb, gamma):
     D = _bwd_inputs(B, Ta, Tb, dev, seed=Ta + Tb + B)
     R = softdtw.wavefront_plain(D, gamma) if Ta > 8192 else softdtw.wavefront(D, gamma)
-    n0 = softdtw.softdtw_backward.launches
+    since = profiling.totals()
     got = softdtw.softdtw_backward(D, R, gamma)
     want = softdtw.softdtw_backward_plain(D, R, gamma)
     torch.cuda.synchronize()
-    assert softdtw.softdtw_backward.launches == n0 + 1
+    assert launches_since(since)["softdtw_bwd"] == 1
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4,
                                atol=1e-6 * float(want.abs().max()))
     assert torch.equal(softdtw.softdtw_backward(D, R, gamma), got)       # two runs, same bits
@@ -672,9 +673,9 @@ def test_trainers_on_card_go_through_their_kernels(dev):
     from golfaction_tpu_torch.train import loops
 
     tc = tcfg.TrainConfig(batch_size=4, learning_rate=3e-3, warmup_steps=2, total_steps=5)
-    counts = lambda: (softdtw.wavefront.launches, softdtw.softdtw_backward.launches,  # noqa: E731
-                      gcn_tail.gcn_block_tail.launches, preprocess.crop_resize_normalize.launches,
-                      heatmap.decode_heatmaps.launches)
+    since = profiling.totals()
+    counts = lambda: tuple(launches_since(since)[k] for k in (  # noqa: E731
+        "softdtw", "softdtw_bwd", "gcn_tail", "preprocess", "decode"))
     c0 = counts()
     _, hist = loops.train_align(tcfg.AlignConfig(embed_dim=16, hidden_channels=(8, 16)), tc,
                                 frames_per_clip=16, log_every=1)
@@ -735,11 +736,11 @@ def test_requant_kernel_matches_plain(dev, shape, groups, residual, out_scale, r
 
     rng = np.random.default_rng(sum(shape) + groups)
     args, kw = _requant_inputs(rng, shape, residual, dev)
-    n0 = requant.requant_epilogue.launches
+    since = profiling.totals()
     got = requant.requant_epilogue(*args, groups, relu=relu, out_scale=out_scale, **kw)
     want = requant.requant_epilogue_plain(*args, groups, relu=relu, out_scale=out_scale, **kw)
     torch.cuda.synchronize()
-    assert requant.requant_epilogue.launches == n0 + 1
+    assert launches_since(since)["requant"] == 1
     assert got.dtype == want.dtype and got.shape == want.shape
     if out_scale is None:
         # Within one bfloat16 ulp: the sums' order moves mean and rstd in
@@ -763,10 +764,10 @@ def test_requant_kernel_takes_rows_off_a_16_byte_boundary(dev):
     flat = torch.empty(args[0].numel() + 1, dtype=torch.int32, device=dev)
     y = flat[1:].view(args[0].shape)
     y.copy_(args[0])
-    n0 = requant.requant_epilogue.launches
+    since = profiling.totals()
     got = requant.requant_epilogue(y, *args[1:], 32, out_scale=0.04, **kw)   # 4-byte accesses
     want = requant.requant_epilogue_plain(*args, 32, out_scale=0.04, **kw)
-    assert requant.requant_epilogue.launches == n0 + 1
+    assert launches_since(since)["requant"] == 1
     diff = (got.int() - want.int()).abs()
     assert int(diff.max()) <= 1 and float((diff != 0).float().mean()) < 0.001
 
@@ -836,12 +837,12 @@ def test_fused_int8_forward_on_card_runs_kernel_f_at_every_site(dev):
     calib = torch.randn((8, 64, 48, 3), generator=gen).to(dev)
     x = torch.randn((4, 64, 48, 3), generator=gen).to(dev)
     qw, scales = pq.prepare_int8(model, calib)
-    n0 = requant.requant_epilogue.launches
+    since = profiling.totals()
     got = pq.pose_forward_int8_fused(model, qw, scales, x)
-    assert requant.requant_epilogue.launches - n0 == 1 + 2 * 3 + 2
+    assert launches_since(since)["requant"] == 1 + 2 * 3 + 2
     want = pq.pose_forward_int8_fused(model, qw, scales, x,
                                       epilogue=requant.requant_epilogue_plain)
-    assert requant.requant_epilogue.launches - n0 == 1 + 2 * 3 + 2
+    assert launches_since(since)["requant"] == 1 + 2 * 3 + 2
     # Site by site the two epilogues differ by 1 LSB on a few elements in a
     # million; each such element moves the next convolution's sums, so the
     # flips multiply along the chain and the heatmaps differ by a few int8

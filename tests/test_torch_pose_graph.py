@@ -21,7 +21,7 @@ from golfaction_tpu_torch import config as tcfg
 from golfaction_tpu_torch import weights
 from golfaction_tpu_torch.models import pose as tpose
 from golfaction_tpu_torch.models import pose_graph
-from golfaction_tpu_torch.ops import group_norm, kernel_counters
+from golfaction_tpu_torch.ops import launches_since
 from golfaction_tpu_torch.pipeline.orchestrator import Pipeline
 from golfaction_tpu_torch.utils import profiling
 
@@ -68,7 +68,7 @@ class CountingNet(tpose.PoseNet):
     def forward(self, x):
         self.calls += 1
         profiling.count("gn_kernel", 23)
-        group_norm.group_norm_act.launches += 20
+        profiling.count("launch.group_norm", 20)
         return super().forward(x)
 
 
@@ -91,11 +91,8 @@ class StandInGraphs(pose_graph.PoseGraphs):
         out = model(x)
 
         def replay():
-            launches = {fn: fn.launches for fn in kernel_counters().values()}
             with profiling.tally():
                 out.copy_(model(x))
-            for fn, n in launches.items():
-                fn.launches = n
 
         return types.SimpleNamespace(replay=replay), out
 
@@ -137,30 +134,30 @@ def test_counts_of_a_replayed_call(on_cpu_as_card):
     net, graphs = _net(), StandInGraphs()
     with torch.no_grad():
         with _cpu_profile():
-            graphs(net, _crops(1), BATCH)                 # the capture, then its replay
-        assert _counts() == {"gn_kernel": 23, "pose_graph": 1}
+            graphs(net, _crops(1), BATCH)                 # warm-up, capture, replay
+        assert _counts() == {"gn_kernel": 23 + 23, "launch.group_norm": 20 + 20,
+                             "pose_graph": 1}
         profiling.reset()
         with _cpu_profile():
             for s in (2, 3):
                 graphs(net, _crops(s), BATCH)
-    assert _counts() == {"gn_kernel": 46, "pose_graph": 2}
+    assert _counts() == {"gn_kernel": 46, "launch.group_norm": 40, "pose_graph": 2}
     assert graphs.captures == 1
     (cap,) = graphs._graphs.values()
-    assert cap.counts == {"gn_kernel": 23}
+    assert cap.counts == {"gn_kernel": 23, "launch.group_norm": 20}
 
 
 def test_launch_counters_count_the_warm_up_and_each_replay_not_the_capture(on_cpu_as_card):
     net, graphs = _net(), StandInGraphs()
-    g = group_norm.group_norm_act
     with torch.no_grad():
-        n0 = g.launches
+        since = profiling.totals()
         graphs(net, _crops(1), BATCH)                 # warm-up, capture, replay
-        assert g.launches == n0 + 40
+        assert launches_since(since)["group_norm"] == 40
         for s in (2, 3):
             graphs(net, _crops(s), BATCH)
-    assert g.launches == n0 + 80
+    assert launches_since(since)["group_norm"] == 80
     (cap,) = graphs._graphs.values()
-    assert cap.launches == {g: 20}
+    assert cap.counts["launch.group_norm"] == 20
 
 
 def test_a_capture_in_inference_mode_serves_a_call_outside_it(on_cpu_as_card):
@@ -225,7 +222,8 @@ def test_cpu_tensors_run_eager_and_count_no_call():
         got = graphs(net, _crops(1), BATCH)
     assert torch.equal(got, net(_crops(1)).detach())
     assert not graphs._graphs
-    assert _counts() == {"gn_kernel": 23}               # the net's own; no pose_eager on the CPU
+    # The net's own counts; no pose_eager on the CPU.
+    assert _counts() == {"gn_kernel": 23, "launch.group_norm": 20}
 
 
 def test_the_pipeline_sends_each_pose_net_call_through_the_runner(monkeypatch):

@@ -22,7 +22,6 @@ from golfaction_tpu_torch import config as tcfg
 from golfaction_tpu_torch import weights
 from golfaction_tpu_torch.models import pose as tpose
 from golfaction_tpu_torch.models import pose_graph
-from golfaction_tpu_torch.ops import group_norm
 from golfaction_tpu_torch.pipeline.orchestrator import Pipeline
 from golfaction_tpu_torch.utils import profiling
 
@@ -87,7 +86,7 @@ def test_a_remainder_runs_eager_and_counts_it(dev):
             torch.cuda.synchronize()
         assert torch.equal(got, net(crops))
     assert not graphs._graphs
-    assert _counts() == {"gn_kernel": 23, "pose_eager": 1}
+    assert _counts() == {"gn_kernel": 23, "launch.group_norm": 20, "pose_eager": 1}
 
 
 def test_captures_again_after_the_parameters_move_and_reads_new_weights_at_once(dev):
@@ -136,28 +135,33 @@ def test_a_replayed_call_counts_23_group_norms_and_one_replay(dev):
                 graphs(net, _crops(BATCH, 7, dev), BATCH)
             torch.cuda.synchronize()
     assert list(graphs._graphs.values()) == [first]                      # a replay alone
-    assert _counts() == {"gn_kernel": 23, "pose_graph": 1}
+    assert _counts() == {"gn_kernel": 23, "launch.group_norm": 20, "pose_graph": 1}
     rec = profiling.recorded()
     (net_span,) = rec.spans
     assert all(c.span == net_span.id for c in rec.counts)
 
 
 def test_kernel_g_launches_count_each_replay_and_not_the_capture(dev):
-    """`group_norm_act.launches` counts what the card ran: the first call's
-    warm-up (20) and replay (20), not its capture; 20 each replay after."""
+    """The counters count what the card ran: the first call's warm-up (20
+    launches of G, 23 GroupNorms) and replay (20, 23), not its capture; 20
+    and 23 each replay after."""
     net, graphs = _shipped_net(dev), pose_graph.PoseGraphs()
-    g = group_norm.group_norm_act
+    since = profiling.totals()
+
+    def counted():                                   # (launches of G, GroupNorms)
+        now = profiling.totals()
+        return tuple(now.get(k, 0) - since.get(k, 0) for k in ("launch.group_norm", "gn_kernel"))
+
     with torch.inference_mode():
-        n0 = g.launches
         graphs(net, _crops(BATCH, 12, dev), BATCH)
-        assert g.launches == n0 + 40
+        assert counted() == (20 + 20, 23 + 23)
         for s in (13, 14):
             graphs(net, _crops(BATCH, s, dev), BATCH)
-        assert g.launches == n0 + 80
+        assert counted() == (80, 92)
         net(_crops(BATCH, 15, dev))                                      # eager: 20 more
-    assert g.launches == n0 + 100
+    assert counted() == (100, 115)
     (cap,) = graphs._graphs.values()
-    assert cap.launches == {g: 20}
+    assert cap.counts == {"gn_kernel": 23, "launch.group_norm": 20}
 
 
 def test_a_graph_captured_in_inference_mode_replays_outside_it(dev):
@@ -174,7 +178,8 @@ def test_a_graph_captured_in_inference_mode_replays_outside_it(dev):
 
 def test_a_capture_under_a_profile(dev):
     """The first call of a shape made while a profile is on (a process
-    traced from its start) captures, replays and counts as any other."""
+    traced from its start) captures, replays and counts as any other: its
+    warm-up and its replay."""
     net, graphs = _shipped_net(dev), pose_graph.PoseGraphs()
     crops = _crops(BATCH, 8, dev)
     with torch.inference_mode():
@@ -182,7 +187,7 @@ def test_a_capture_under_a_profile(dev):
             got = graphs(net, crops, BATCH)
             torch.cuda.synchronize()
         assert torch.equal(got, net(crops))
-    assert _counts() == {"gn_kernel": 23, "pose_graph": 1}
+    assert _counts() == {"gn_kernel": 23 + 23, "launch.group_norm": 20 + 20, "pose_graph": 1}
 
 
 def _traced_pose(dev, call) -> list:
@@ -237,5 +242,5 @@ def test_the_pipeline_pose_stage_equal_with_and_without_the_graph(dev, monkeypat
         monkeypatch.setattr(pose_graph, "graph_route", lambda *a: "eager")
         want, _ = pipe._pose_fn(frames, boxes)
     assert counts["pose_graph"] == 3 and "pose_eager" not in counts
-    assert counts["gn_kernel"] == 3 * 23
+    assert counts["gn_kernel"] == 23 + 3 * 23                            # the warm-up, 3 replays
     assert torch.equal(got, want)

@@ -11,7 +11,9 @@ import torch
 from golfaction_tpu.ops import affine as jaffine
 from golfaction_tpu.ops import preprocess as jpre
 from golfaction_tpu_torch.ops import affine as taffine
+from golfaction_tpu_torch.ops import launches_since
 from golfaction_tpu_torch.ops import preprocess as tpre
+from golfaction_tpu_torch.utils import profiling
 
 OUT_HW = (64, 48)
 
@@ -52,9 +54,9 @@ def test_separable_matches_jax_fast_path(seed, off_frame):
 def test_entry_point_on_cpu_is_the_gather(seed, off_frame):
     frames, boxes = _inputs(seed, off_frame=off_frame)
     f, b = torch.from_numpy(frames), torch.from_numpy(boxes)
-    n0 = tpre.crop_resize_normalize.launches
+    since = profiling.totals()
     got = tpre.crop_resize_normalize(f, b, OUT_HW)
-    assert tpre.crop_resize_normalize.launches == n0       # no kernel on the CPU
+    assert launches_since(since)["preprocess"] == 0       # no kernel on the CPU
     np.testing.assert_array_equal(got.numpy(),
                                   tpre.crop_resize_normalize_reference(f, b, OUT_HW).numpy())
     # The two plain versions compute one function.

@@ -38,8 +38,10 @@ from golfaction_tpu.pipeline import video_io as jvideo
 from golfaction_tpu_torch import bench_preprocess_dtype, weights
 from golfaction_tpu_torch import config as tcfg
 from golfaction_tpu_torch import types as ttypes
+from golfaction_tpu_torch.ops import launches_since
 from golfaction_tpu_torch.ops import preprocess as tpre
 from golfaction_tpu_torch.pipeline import orchestrator as torch_orch
+from golfaction_tpu_torch.utils import profiling
 from tests.golden.common import GOLDEN_CFG, fixture_clips
 from tests.torch_cascade_tree import ROOT
 from tests.torch_parity import port_config
@@ -87,9 +89,9 @@ def test_bf16_reference_equals_jax_bit_for_bit(seed, kind):
         assert got.dtype == torch.bfloat16 and tuple(got.shape) == want.shape
         # Compared as float32: every bfloat16 value is exact there.
         np.testing.assert_array_equal(_np(got), np.asarray(want.astype(jnp.float32)))
-        n0 = tpre.crop_resize_normalize_bf16.launches
+        since = profiling.totals()
         entry = tpre.crop_resize_normalize(f, b, out_hw, dtype=torch.bfloat16)
-        assert tpre.crop_resize_normalize_bf16.launches == n0     # no kernel on the CPU
+        assert launches_since(since)["preprocess_bf16"] == 0     # no kernel on the CPU
         assert torch.equal(entry, got)
     if kind == "outside":      # normalized zero, as JAX's zero border gives
         zero = -torch.tensor(tpre.IMAGENET_MEAN) / torch.tensor(tpre.IMAGENET_STD)

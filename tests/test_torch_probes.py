@@ -46,8 +46,7 @@ from golfaction_tpu_torch import _probe_common, probe_arm_gain, probe_heatmap_mo
 from golfaction_tpu_torch import probe_heatmap_spread, weights
 from golfaction_tpu_torch import config as tcfg
 from golfaction_tpu_torch.pipeline.orchestrator import Pipeline, init_params
-from tests.torch_cascade_tree import (POSE_META, ROOT, TINY, TINY_SET, build_tree,  # noqa: F401
-                                      one_torch_thread)
+from tests.torch_cascade_tree import POSE_META, ROOT, TINY, TINY_SET, build_tree
 
 sys.path.insert(0, str(ROOT / "scripts"))
 import _probe_common as jprobe  # noqa: E402

@@ -15,7 +15,8 @@ import pytest
 import torch
 
 from golfaction_tpu.ops.pallas import requant_kernel as rk
-from golfaction_tpu_torch.ops import requant
+from golfaction_tpu_torch.ops import launches_since, requant
+from golfaction_tpu_torch.utils import profiling
 from tests.test_torch_requant_geometry import assert_geometry_covers
 
 CASES = [
@@ -95,11 +96,11 @@ def test_plain_epilogue_matches_jax(oracle, residual, relu, out_scale, shape, gr
 def test_cpu_wrapper_is_the_plain_version_and_counts_no_launch():
     args, kw = _inputs(0, (2, 4, 6, 16), "conv")
     targs, tkw = _as(torch.from_numpy, args, kw)
-    n0 = requant.requant_epilogue.launches
+    since = profiling.totals()
     a = requant.requant_epilogue(*targs, 4, out_scale=0.05, **tkw)
     b = requant.requant_epilogue_plain(*targs, 4, out_scale=0.05, **tkw)
     assert torch.equal(a, b)
-    assert requant.requant_epilogue.launches == n0
+    assert launches_since(since)["requant"] == 0
 
 
 def test_group_norm_rows_matches_torch_group_norm():

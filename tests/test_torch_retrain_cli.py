@@ -30,7 +30,7 @@ from golfaction_tpu_torch import config as tcfg
 from golfaction_tpu_torch.models.pose import PoseNet
 from golfaction_tpu_torch.pipeline.orchestrator import Pipeline
 from tests.test_torch_import_weights import POSE, SQUARE_DECONV, _mmpose_state_dict
-from tests.torch_cascade_tree import ROOT, TINY_SET, one_torch_thread  # noqa: F401
+from tests.torch_cascade_tree import ROOT, TINY_SET
 
 SETS = [a for s in TINY_SET for a in ("--set", s)]
 SMALL = ["--cpu", "--steps", "2", "--eval-clips", "2", "--frames", "16", "--batch-size", "4",

@@ -9,7 +9,9 @@ import pytest
 import torch
 
 from golfaction_tpu.ops import softdtw as jsd
+from golfaction_tpu_torch.ops import launches_since
 from golfaction_tpu_torch.ops import softdtw as tsd
+from golfaction_tpu_torch.utils import profiling
 
 
 def _D(seed, B, Ta, Tb, dim=8):
@@ -99,9 +101,9 @@ def test_warp_by_path_matches_jax(length):
 
 def test_wavefront_on_cpu_launches_nothing():
     _, _, D = _D(1, 2, 5, 6)
-    n0 = tsd.wavefront.launches
+    since = profiling.totals()
     tsd.wavefront(D, 0.1)
-    assert tsd.wavefront.launches == n0
+    assert launches_since(since)["softdtw"] == 0
 
 
 def test_batched_jax_scan_matches_port():

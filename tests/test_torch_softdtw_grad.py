@@ -11,7 +11,9 @@ import torch
 
 from golfaction_tpu.ops import softdtw as jsd
 from golfaction_tpu.ops.pallas import softdtw_kernel as jpk
+from golfaction_tpu_torch.ops import launches_since
 from golfaction_tpu_torch.ops import softdtw as tsd
+from golfaction_tpu_torch.utils import profiling
 
 GAMMA = 0.1
 SHAPES = [(1, 1), (6, 6), (5, 12), (12, 5), (16, 9)]
@@ -111,7 +113,8 @@ def test_hard_minimum_has_no_gradient():
 
 def test_backward_on_cpu_launches_nothing():
     D = _D(1, 2, 5, 6).requires_grad_()
-    n0, n1 = tsd.softdtw_backward.launches, tsd.wavefront.launches
+    since = profiling.totals()
     tsd.softdtw_cost(D, GAMMA).sum().backward()
-    assert (tsd.softdtw_backward.launches, tsd.wavefront.launches) == (n0, n1)
+    launched = launches_since(since)
+    assert (launched["softdtw_bwd"], launched["softdtw"]) == (0, 0)
     assert D.grad.shape == D.shape

@@ -5,6 +5,7 @@ except the last test, which needs a card (a CUDA-only profile).
     python -m pytest tests/test_torch_tracing.py -q
 """
 
+import contextlib
 import json
 import time
 
@@ -101,6 +102,21 @@ def test_the_buffer_is_bounded_and_counts_what_it_drops():
     assert len(got.spans) == 3 and got.counts == () and got.dropped == 2
     rec.reset()
     assert rec.recorded() == profiling.Recorded((), (), 0)
+
+
+@pytest.mark.parametrize("where", ["outside a profile", "inside a tally", "under a profile"])
+def test_a_count_goes_to_the_totals_and_the_records_by_where_it_is_made(where):
+    block = {"outside a profile": contextlib.nullcontext, "inside a tally": profiling.tally,
+             "under a profile": _cpu_profile}[where]
+    before = profiling.totals()
+    with block():
+        profiling.count("probe", 3)
+    added = profiling.totals().get("probe", 0) - before.get("probe", 0)
+    assert added == (0 if where == "inside a tally" else 3)
+    recorded = [(c.name, c.n) for c in profiling.recorded().counts]
+    assert recorded == ([("probe", 3)] if where == "under a profile" else [])
+    profiling.reset()                                        # empties the records only
+    assert profiling.totals().get("probe", 0) - before.get("probe", 0) == added
 
 
 def test_a_span_closes_on_an_exception():

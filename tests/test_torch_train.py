@@ -31,11 +31,12 @@ from golfaction_tpu_torch.models.align import AlignEncoder
 from golfaction_tpu_torch.models.error import ErrorClassifier
 from golfaction_tpu_torch.models.gcn import ActionSegmentationGCN
 from golfaction_tpu_torch.models.pose import PoseNet
-from golfaction_tpu_torch.ops import gcn_tail, heatmap, preprocess, softdtw
+from golfaction_tpu_torch.ops import heatmap, launches_since, softdtw
 from golfaction_tpu_torch.train import data as tdata
 from golfaction_tpu_torch.train import loops as tloops
 from golfaction_tpu_torch.train import losses as tlosses
 from golfaction_tpu_torch.train import metrics as tmetrics
+from golfaction_tpu_torch.utils import profiling
 from tests.torch_parity import sub_config, to_numpy
 
 # The narrow widths of tests/test_train.py.
@@ -250,10 +251,10 @@ def test_pose_batch_matches_jax():
     s = tdata.make_swing_batch(2, 8, seed=4, image_hw=(96, 128), render=True,
                                scene_families=tdata.TRAIN_SCENE_FAMILIES)
     kw = dict(frame_stride=2, box_jitter=0.25, full_frame_prob=0.25)
-    n0 = preprocess.crop_resize_normalize.launches
+    since = profiling.totals()
     got = tloops.build_pose_batch(s, pt, jitter_rng=np.random.default_rng(9), device="cpu", **kw)
     want = jloops.build_pose_batch(s, pj, jitter_rng=np.random.default_rng(9), **kw)
-    assert preprocess.crop_resize_normalize.launches == n0
+    assert launches_since(since)["preprocess"] == 0
     _assert_batches_close(got, want, atol=1e-4)         # bilinear crops and targets
     np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))    # weights exact
     boxes = tloops._pose_boxes(s[0].boxes, pt, "cpu")
@@ -454,12 +455,12 @@ def test_parameters_after_three_steps_match_jax(stepped):
 
 def test_train_gcn_reduces_loss_and_leaves_no_stale_tail():
     cfg = tcfg.GCNConfig(**{**GCN, "dropout": 0.1})
-    n0 = gcn_tail.gcn_block_tail.launches
+    since = profiling.totals()
     state, hist = tloops.train_gcn(cfg, tcfg.TrainConfig(**TRAIN), frames_per_clip=24,
                                    log_every=1, device="cpu")
     assert hist[-1]["loss"] < hist[0]["loss"] and state.step == 8 and len(hist) == 8
     assert all(np.isfinite(list(r.values())).all() for r in hist)
-    assert gcn_tail.gcn_block_tail.launches == n0
+    assert launches_since(since)["gcn_tail"] == 0
     model = state.model
     assert not model.training and model.blocks[0].tail is None
     x, valid = torch.zeros(1, 8, 17, 3), torch.ones(1, 8, dtype=torch.bool)
@@ -496,9 +497,9 @@ def test_train_pose_reduces_loss_and_evaluates():
     assert hist[-1]["loss"] < hist[0]["loss"]
     samples = tdata.make_swing_batch(2, 4, seed=780_000, image_hw=(96, 128), render=True,
                                      scene_families=tdata.TRAIN_SCENE_FAMILIES)
-    n0 = heatmap.decode_heatmaps.launches
+    since = profiling.totals()
     pck = tloops.evaluate_pose(state.model, pc, samples)
-    assert 0.0 <= pck <= 1.0 and heatmap.decode_heatmaps.launches == n0
+    assert 0.0 <= pck <= 1.0 and launches_since(since)["decode"] == 0
 
 
 def test_train_pose_without_a_pool_renders_each_step():

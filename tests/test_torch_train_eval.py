@@ -36,7 +36,7 @@ from golfaction_tpu_torch.ops import softdtw
 from golfaction_tpu_torch.pipeline.orchestrator import init_params
 from golfaction_tpu_torch.train import data as tdata
 from golfaction_tpu_torch.train import loops
-from tests.torch_cascade_tree import TINY, TINY_SET, one_torch_thread  # noqa: F401
+from tests.torch_cascade_tree import TINY, TINY_SET
 
 CLIPS, FRAMES, POSE_HW = 4, 32, (96, 128)
 

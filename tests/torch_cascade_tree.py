@@ -10,8 +10,6 @@ import shutil
 from pathlib import Path
 
 import numpy as np
-import pytest
-import torch
 
 from golfaction_tpu import config as jcfg
 from golfaction_tpu.pipeline import orchestrator as jorch
@@ -86,15 +84,3 @@ def tree_bytes(root) -> dict:
             with open(path, "rb") as f:
                 out[os.path.relpath(path, root)] = f.read()
     return out
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The cascade tests run at tiny widths, where torch's intra-op threads
-    buy nothing; at the machine's thread count they spin against the other
-    test workers' threads and slow every worker many times over.  One
-    thread for the module, the process's count restored after it."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
